@@ -1,30 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is the benchmark's MD step (bench.py): 7,763 rigid 3-site
-waters (23,289 atoms) in a 6.16 nm box, 3 subsets and two lambda scaling
-parameters, PME (cutoff 0.9 nm, Ewald tolerance 5e-4), water-triangle
-exclusions, SETTLE and leapfrog at 2 fs, from the pre-equilibrated 300 K
-state in extras/bench_state_rigid.npz.  The system is built here through
-the port's force/System API (bench.py itself imports the JAX package).
+Two paths through make_md_step, both at full width:
+
+* the benchmark's MD step (bench.py): 7,763 rigid 3-site waters (23,289
+  atoms) in a 6.16 nm box, 3 subsets and two lambda scaling parameters, PME
+  (cutoff 0.9 nm, Ewald tolerance 5e-4), water-triangle exclusions, SETTLE
+  and leapfrog at 2 fs, from the pre-equilibrated 300 K state in
+  extras/bench_state_rigid.npz.  Its pair kernel is the column kernel
+  (csrc/pair_column.cu).
+* the solute path: a flexible 12-site united-atom chain in a cavity of the
+  same water box, decoupled by lambda_elec / lambda_vdw, with harmonic
+  bonds.  Its exclusions are not water triangles, so the fused engine takes
+  the min-image cell kernel (csrc/pair_cell.cu) with the Ewald exclusion
+  corrections fused in, and the waters take the gather (M-SHAKE)
+  constrainer.
+
+Both systems are built through the port's force/System API (bench.py
+itself imports the JAX package).
 
 Phases, each printed on its own line; any failure exits non-zero before
 the last line:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. the nvcc build of csrc/*.cu (sm_90a) and its time;
-3. each kernel against its plain PyTorch twin on the same CUDA tensors at
-   the benchmark shapes, with CUDA-event times of both;
+3. each kernel of the benchmark path (the double spread of energy
+   evaluations included) against its plain PyTorch twin on the same CUDA
+   tensors at the benchmark shapes, with CUDA-event times of both;
 4. one prepare + apply (energies) in float32 on the card against the same
-   code on CPU tensors in float64 (the plain twins);
+   code on CPU tensors in float64 (the plain twins), and the forces of one
+   force-only apply, the variant every MD inner step runs, against the
+   same;
 5. make_md_step from the benchmark state: one 200-step warm-up chunk, then
    five timed 200-step chunks (median and range of ms/step and ns/day);
-   energy, guards, constraints, temperature and each kernel's launch
-   count over all six.
+   energy, guards, constraints, temperature and the launch count of each
+   kernel;
+6. the solute path: the system (atoms, waters removed, cells, capacity,
+   emax), every excluded pair's span against one cell width, pair_cell and
+   the three PME kernels against their plain twins at these shapes
+   (nsub 2), the card-f32 vs CPU-f64 evaluations of phase 4, and
+   make_md_step with the bonds and the water constraints: one 200-step
+   warm-up chunk, then three timed chunks; energy, constraints,
+   temperature and the launch counts (pair_cell > 0, pair_column 0).
 
-The line before the last is a JSON object of the kernels; the last line is
+Both systems come from port_systems.py.  The line before the last is a
+JSON object of the kernels, one entry per kernel and path ("rigid" or
+"solute"): launches in that path's MD run, max abs error against the plain
+twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
+operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
+tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
+and written once over 3.35 TB/s.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -37,26 +64,46 @@ import time
 
 import numpy as np
 
+from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
+                          SOLUTE_SITES, STATE_FILE, WATER_MASSES,
+                          build_solute_system, build_system,
+                          max_cell_occupancy, solute_velocities)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
-STATE_FILE = os.path.join(ROOT, "extras", "bench_state_rigid.npz")
 
-N_MOLECULES = 7763
-DT_PS = 0.002
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
-D_OH, D_HH = 0.09572, 0.15139
-KB = 8.31446261815324e-3          # kJ/mol/K
+SOLUTE_TIMED_CHUNKS = 3
 
 # tolerances (kernel vs plain twin on the card; card f32 vs CPU f64)
 TOL_FORCE = 2e-5          # of max|F| + 1
 TOL_ENERGY = 1e-5         # of max|E| + 1, after the f64 reduction
 TOL_GRID = 2e-5           # of the spread grid's max
+TOL_GRID64 = 1e-7         # of the max, the double spread (2^-32 fixed point)
 TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
 TOL_EVAL_DERIV = 1e-5     # relative dE/dlambda
 TOL_CONSTRAINT = 1e-5     # nm
 
+# the bound: peaks of one H100 SXM (NVIDIA's data sheet, 700 W)
+PEAK_FP32_FLOPS = 67e12           # FP32 outside the tensor cores
+PEAK_FP64_FLOPS = 34e12           # FP64 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12        # HBM3
+# float operations of the kernels' arithmetic per unit of work that the
+# inputs need (an FMA counts two; rsqrt, exp, floor and a division one)
+PAIR_OPS = 58           # a pair within the cutoff: Ewald + LJ forces
+PAIR_ENERGY_OPS = 9     # ... and its two energies (pair_common.cuh)
+MIN_IMAGE_OPS = 21      # ... and its minimum image (pair_cell.cu)
+EXCL_OPS = 45           # an excluded pair's Ewald correction, force
+EXCL_ENERGY_OPS = 5     # ... and its energy (pair_cell.cu)
+SPREAD_OPS = 466        # a charged atom: coordinates, 3 splines, 125 weights
+GRID_POINT_OPS = 2      # a grid point: fixed point to float (pme_spread.cu)
+INTERP_OPS = 935        # a charged atom: splines and derivatives, 125-point
+                        # gradient, force (pme_interp.cu)
+
+# the port's kernels: launch-count key -> (source, the TPU kernel's
+# pallas_call it replaces)
 KERNELS = {
     "pair_column": ("csrc/pair_column.cu",
                     "nonbondedslicing_tpu/ops/pallas_direct.py:609"),
@@ -64,9 +111,31 @@ KERNELS = {
                              "nonbondedslicing_tpu/ops/pallas_direct.py:609"),
     "pme_spread": ("csrc/pme_spread.cu",
                    "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
+    "pme_spread_energies": ("csrc/pme_spread.cu",
+                            "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
     "pme_interp": ("csrc/pme_interp.cu",
                    "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
+    "pair_cell": ("csrc/pair_cell.cu",
+                  "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
+    "pair_cell_energies": ("csrc/pair_cell.cu",
+                           "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
 }
+# the entries of the kernels line: (name, kernel, path), each kernel held
+# against its plain twin at its path's shapes and counted in its path's run
+ENTRIES = (
+    ("pair_column", "pair_column", "rigid"),
+    ("pair_column_energies", "pair_column_energies", "rigid"),
+    ("pme_spread", "pme_spread", "rigid"),
+    ("pme_spread_energies", "pme_spread_energies", "rigid"),
+    ("pme_interp", "pme_interp", "rigid"),
+    ("pair_cell", "pair_cell", "solute"),
+    ("pair_cell_energies", "pair_cell_energies", "solute"),
+    ("pme_spread_solute", "pme_spread", "solute"),
+    ("pme_spread_energies_solute", "pme_spread_energies", "solute"),
+    ("pme_interp_solute", "pme_interp", "solute"),
+)
+PATH_KERNELS = {path: {k for _, k, p in ENTRIES if p == path}
+                for path in ("rigid", "solute")}
 
 
 class SmokeFailure(RuntimeError):
@@ -79,72 +148,11 @@ def check(ok, what):
         raise SmokeFailure(what)
 
 
-def build_system(nbt):
-    """bench.py:56-138 (rigid) through the port's API, plus dE/dlambda
-    requests for both scaling parameters."""
-    n_mol = N_MOLECULES
-    n_atoms = 3 * n_mol
-    box = float(np.cbrt(n_atoms / 100.2))
-    rng = np.random.default_rng(42)
-    force = nbt.SlicedNonbondedForce(3)
-    force.setNonbondedMethod(nbt.SlicedNonbondedForce.PME)
-    force.setCutoffDistance(0.9)
-    force.setEwaldErrorTolerance(5e-4)
-    system = nbt.System()
-    system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
-    positions = np.zeros((n_atoms, 3))
-    c_pairs, c_dists = [], []
-    m = int(np.ceil(n_mol ** (1 / 3)))
-    spacing = box / m
-    qO, qH = -0.834, 0.417
-    sigO, epsO = 0.3151, 0.6364
-    sigH, epsH = 0.04, 0.192
-    for k in range(n_mol):
-        iz, r = divmod(k, m * m)
-        iy, ix = divmod(r, m)
-        center = (np.array([ix, iy, iz]) + 0.5) * spacing
-        system.addParticle(15.999)
-        system.addParticle(1.008)
-        system.addParticle(1.008)
-        force.addParticle(qO, sigO, epsO)
-        force.addParticle(qH, sigH, epsH)
-        force.addParticle(qH, sigH, epsH)
-        o = 3 * k
-        center = center + rng.uniform(-0.06, 0.06, 3) * spacing
-        axis = rng.normal(size=3)
-        axis /= np.linalg.norm(axis)
-        perp = np.cross(axis, rng.normal(size=3))
-        perp /= np.linalg.norm(perp)
-        half = D_HH / 2
-        h = np.sqrt(D_OH ** 2 - half ** 2)
-        positions[o] = center
-        positions[o + 1] = center + h * axis + half * perp
-        positions[o + 2] = center + h * axis - half * perp
-        force.addException(o, o + 1, 0, 1, 0)
-        force.addException(o, o + 2, 0, 1, 0)
-        force.addException(o + 1, o + 2, 0, 1, 0)
-        c_pairs.append([[o, o + 1], [o, o + 2], [o + 1, o + 2]])
-        c_dists.append([D_OH, D_OH, D_HH])
-    for k in range(n_mol):
-        subset = 0 if k < n_mol // 3 else (1 if k < 2 * n_mol // 3 else 2)
-        for a in range(3):
-            force.setParticleSubset(3 * k + a, subset)
-    force.addGlobalParameter("lambda01", 1.0)
-    force.addScalingParameter("lambda01", 0, 1, True, True)
-    force.addGlobalParameter("lambda12", 1.0)
-    force.addScalingParameter("lambda12", 1, 2, True, True)
-    force.addEnergyParameterDerivative("lambda01")
-    force.addEnergyParameterDerivative("lambda12")
-    system.addForce(force)
-    return system, force, box, (c_pairs, c_dists)
-
-
-def max_cell_occupancy(positions, box, counts):
-    frac = positions @ np.linalg.inv(box).T
-    frac -= np.floor(frac)
-    ci = np.minimum((frac * counts).astype(np.int64), np.asarray(counts) - 1)
-    cell = (ci[:, 0] * counts[1] + ci[:, 1]) * counts[2] + ci[:, 2]
-    return int(np.bincount(cell).max())
+def exclusion_span(positions, pairs, box_len):
+    """Largest minimum-image distance of the excluded pairs (cubic box)."""
+    d = positions[pairs[:, 0]] - positions[pairs[:, 1]]
+    d -= box_len * np.round(d / box_len)
+    return float(np.linalg.norm(d, axis=1).max())
 
 
 def cuda_ms(fn, reps):
@@ -172,6 +180,308 @@ def timed_pair(kernel_fn, plain_fn, reps):
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
 
 
+def bound(ops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    """(bound ms, "operations" or "bytes") of work that needs ``ops``
+    operations at ``peak_flops`` and moves ``nbytes`` bytes."""
+    t_ops = ops / peak_flops
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def pair_counts(slot_pos, slot_ids, slot_excl, box, cutoff, n_real, counts):
+    """(pairs within the cutoff that are not excluded, excluded pairs) among
+    the real slots of every 27-cell neighbourhood, each unordered pair once,
+    by minimum image in the rectangular ``box``."""
+    import torch
+    g, _, C = slot_pos.shape
+    lengths = torch.diagonal(box).reshape(1, 3, 1, 1)
+    grid_pos = slot_pos.reshape(*counts, 3, C)
+    grid_ids = slot_ids.reshape(*counts, C)
+    real = slot_ids < n_real
+    eye = torch.eye(C, dtype=torch.bool, device=slot_pos.device)
+    n_pair = n_excl = 0
+    for o in range(27):
+        roll = dict(shifts=(1 - o // 9, 1 - (o // 3) % 3, 1 - o % 3),
+                    dims=(0, 1, 2))
+        cand = torch.roll(grid_pos, **roll).reshape(g, 3, C)
+        cids = torch.roll(grid_ids, **roll).reshape(g, C)
+        d = slot_pos[:, :, :, None] - cand[:, :, None, :]
+        d = d - lengths * torch.round(d / lengths)
+        near = torch.sum(d * d, dim=1) < cutoff * cutoff
+        both = real[:, :, None] & (cids < n_real)[:, None, :]
+        if o == 13:
+            both = both & ~eye
+        excluded = torch.any(slot_excl[:, :, :, None] == cids[:, None, None, :],
+                             dim=1)
+        n_pair += int((both & ~excluded & near).sum())
+        n_excl += int((both & excluded).sum())
+    return n_pair // 2, n_excl // 2
+
+
+def pair_bound(pc, energies, n_pair, n_excl, cell_kernel):
+    """Bound of one pair-kernel call: the pairs within the cutoff (and, for
+    the cell kernel, their minimum image and the excluded pairs'
+    corrections), and the slot tensors read and the outputs written once."""
+    ops = n_pair * (PAIR_OPS + (PAIR_ENERGY_OPS if energies else 0))
+    if cell_kernel:
+        ops += n_pair * MIN_IMAGE_OPS
+        ops += n_excl * (EXCL_OPS + (EXCL_ENERGY_OPS if energies else 0))
+    g, C, nsub = pc.n_cells, pc.capacity, pc.nsub
+    nbytes = (4 * g * C * (3 + 3 + 1 + 1 + pc.emax) + 4 * 2 * nsub * nsub
+              + 4 * 9 + 4 * g * 3 * C
+              + (4 * g * 2 * nsub * nsub if energies else 0))
+    return bound(ops, nbytes)
+
+
+def slice_energies(moments, nsub):
+    """Slice energies (S, 2) in f64 from per-cell moments."""
+    import torch
+    m = moments.double().sum(0)
+    return torch.stack([m[:, a, a] if a == b else m[:, a, b] + m[:, b, a]
+                        for a, b in zip(*np.triu_indices(nsub))])
+
+
+def pair_kernel_check(name, kernel, plain, args, pc, reps):
+    """A pair kernel against its plain twin on the same CUDA tensors
+    (``args[9]`` is the energies flag): forces within TOL_FORCE, slice
+    energies within TOL_ENERGY, and CUDA-event times of both."""
+    import torch
+    energies = args[9]
+    f_k, m_k = kernel(*args)
+    f_p, m_p = plain(*args)
+    torch.cuda.synchronize()
+    err = float((f_k - f_p).abs().max())
+    fmax = float(f_p.abs().max())
+    check(err <= TOL_FORCE * (fmax + 1.0),
+          f"{name}: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
+          f"(max|F| {fmax:.1f} + 1)")
+    if energies:
+        e_k, e_p = slice_energies(m_k, pc.nsub), slice_energies(m_p, pc.nsub)
+        e_err = float((e_k - e_p).abs().max())
+        emax = float(e_p.abs().max())
+        check(e_err <= TOL_ENERGY * (emax + 1.0),
+              f"{name}: slice energies max|dE| {e_err:.3e} <= "
+              f"{TOL_ENERGY} * (max|E| {emax:.1f} + 1)")
+    ms, plain_ms = timed_pair(lambda: kernel(*args), lambda: plain(*args),
+                              reps)
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np):
+    """(total energy, forces, dE/dlambda) of one apply with energies on CPU
+    tensors in float64 (the plain twins)."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    from nonbondedslicing_tpu_torch.runtime.fastpath import DEFAULT_SKIN
+    f64 = torch.float64
+    data = engine_mod.plan_data(plan, device="cpu", dtype=f64)
+    pos = torch.as_tensor(pos_np, dtype=f64)
+    box = torch.as_tensor(box_np, dtype=f64)
+    gvals = torch.as_tensor(gvals_np, dtype=f64)
+    prepare, apply, _ = fused_mod.make_fused_engine(
+        plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN, energies=True)
+    e, f, _ = apply(pos, box, gvals, data, prepare(pos, box, gvals, data))
+    energy = float(engine_mod.contract_energy(
+        e, slice_lambdas(plan.lam_source, gvals)))
+    return energy, f, engine_mod.parameter_derivatives(e, plan.deriv_mask)
+
+
+def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
+    """The spread kernel, its double variant (energy evaluations) and the
+    interpolation kernel against their plain twins on one path's slot
+    tensors: the grid within TOL_GRID of its max and bitwise repeatable, the
+    double grid within TOL_GRID64, the forces within TOL_FORCE; CUDA-event
+    times and the bound of each.  ``names`` are the three entries' names.
+    Returns their results."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_pme
+    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
+    from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
+    spread_name, spread64_name, interp_name = names
+    recip = recip_box_vectors(box)
+    grid_shape = cfg["pme_grid"]
+    nsub = lam_c_nn.shape[0]
+    g, _, C = slot_pos.shape
+    n_grid = nsub * int(np.prod(grid_shape))
+    n_charged = int((st["slot_q"] != 0).sum())
+    spread_args = (slot_pos, st["slot_q"], st["slot_sub"], recip, grid_shape,
+                   nsub)
+    grid_k = cuda_pme.pme_spread(*spread_args)
+    grid_p = cuda_pme.pme_spread_plain(*spread_args)
+    torch.cuda.synchronize()
+    err = float((grid_k - grid_p).abs().max())
+    gmax = float(grid_p.abs().max())
+    check(err <= TOL_GRID * gmax, f"{spread_name}: grid max|d| {err:.3e} <= "
+          f"{TOL_GRID} * max {gmax:.3f}")
+    check(torch.equal(grid_k, cuda_pme.pme_spread(*spread_args)),
+          f"{spread_name}: bitwise repeatable (fixed-point adds)")
+    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_spread(*spread_args),
+                              lambda: cuda_pme.pme_spread_plain(*spread_args),
+                              reps)
+    print(f"{spread_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    spread = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    spread["bound_ms"], spread["bound_by"] = bound(
+        n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
+        4 * g * C * 5 + 4 * 9 + 4 * n_grid)
+
+    spread64_args = (slot_pos, st["slot_q"], st["slot_sub"],
+                     recip_box_vectors(box.double()), grid_shape, nsub)
+    grid_k64 = cuda_pme.pme_spread(*spread64_args, double=True)
+    grid_p64 = cuda_pme.pme_spread_plain(*spread64_args, double=True)
+    torch.cuda.synchronize()
+    err = float((grid_k64 - grid_p64).abs().max())
+    gmax = float(grid_p64.abs().max())
+    check(grid_k64.dtype == torch.float64 and err <= TOL_GRID64 * gmax,
+          f"{spread64_name}: grid max|d| {err:.3e} <= {TOL_GRID64} * max "
+          f"{gmax:.3f}")
+    ms, plain_ms = timed_pair(
+        lambda: cuda_pme.pme_spread(*spread64_args, double=True),
+        lambda: cuda_pme.pme_spread_plain(*spread64_args, double=True), reps)
+    print(f"{spread64_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    spread64 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    spread64["bound_ms"], spread64["bound_by"] = bound(
+        n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
+        4 * g * C * 5 + 8 * 9 + 8 * n_grid, PEAK_FP64_FLOPS)
+
+    eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
+        grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
+        device=slot_pos.device).to(torch.float32)
+    spec = torch.fft.rfftn(grid_k, dim=(1, 2, 3))
+    phi = torch.fft.irfftn(
+        torch.einsum("st,txyk->sxyk", lam_c_nn.to(spec.dtype), spec * eterm),
+        s=tuple(grid_shape), dim=(1, 2, 3), norm="forward").contiguous()
+    interp_args = (phi, slot_pos, st["slot_q"], st["slot_sub"], recip)
+    f_k = cuda_pme.pme_interp(*interp_args)
+    f_p = cuda_pme.pme_interp_plain(*interp_args)
+    torch.cuda.synchronize()
+    err = float((f_k - f_p).abs().max())
+    fmax = float(f_p.abs().max())
+    check(err <= TOL_FORCE * (fmax + 1.0),
+          f"{interp_name}: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
+          f"(max|F| {fmax:.1f} + 1)")
+    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_interp(*interp_args),
+                              lambda: cuda_pme.pme_interp_plain(*interp_args),
+                              reps)
+    print(f"{interp_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    interp = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    interp["bound_ms"], interp["bound_by"] = bound(
+        n_charged * INTERP_OPS,
+        4 * n_grid + 4 * g * C * 5 + 4 * 9 + 4 * g * 3 * C)
+    return {spread_name: spread, spread64_name: spread64, interp_name: interp}
+
+
+def evaluation_check(label, plan, capacity, apply, state, pos, box, gvals,
+                     data, pos_np, box_np, gvals_np):
+    """One apply with energies in f32 on the card against the same code on
+    CPU tensors in f64 (``cpu_evaluation`` of the numpy inputs): total
+    energy, forces and every dE/dlambda; and the forces of one force-only
+    apply, the variant every MD inner step runs.  Returns the CPU result."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    from nonbondedslicing_tpu_torch.runtime.fastpath import DEFAULT_SKIN
+    t0 = time.time()
+    e_g, f_g, _ = apply(pos, box, gvals, data, state)
+    prepare_f, apply_f, _ = fused_mod.make_fused_engine(
+        plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
+        energies=False)
+    _, f_fo, _ = apply_f(pos, box, gvals, data,
+                         prepare_f(pos, box, gvals, data))
+    torch.cuda.synchronize()
+    E_c, f_c, d_c = cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np)
+    E_g = float(engine_mod.contract_energy(
+        e_g.cpu(), slice_lambdas(plan.lam_source,
+                                 torch.as_tensor(gvals_np, dtype=torch.float64))))
+    rel_e = abs(E_g - E_c) / abs(E_c)
+    f_err = float((f_g.cpu().double() - f_c).abs().max()) / float(
+        f_c.abs().max())
+    d_g = engine_mod.parameter_derivatives(e_g.cpu(), plan.deriv_mask)
+    rel_d = float(((d_g - d_c).abs() / d_c.abs().clamp(min=1.0)).max())
+    print(f"{label}: E card f32 {E_g:.6f}, CPU f64 {E_c:.6f} kJ/mol; "
+          f"dE/dlambda card {d_g.tolist()}, CPU {d_c.tolist()} "
+          f"({time.time() - t0:.1f} s)")
+    check(math.isfinite(E_g) and rel_e <= TOL_EVAL_ENERGY,
+          f"{label}: relative energy error {rel_e:.3e} <= {TOL_EVAL_ENERGY}")
+    check(f_err <= TOL_EVAL_FORCE,
+          f"{label}: force error {f_err:.3e} of max|F| <= {TOL_EVAL_FORCE}")
+    f_err = float((f_fo.cpu().double() - f_c).abs().max()) / float(
+        f_c.abs().max())
+    check(f_err <= TOL_EVAL_FORCE,
+          f"{label}: force-only apply, force error {f_err:.3e} of max|F| <= "
+          f"{TOL_EVAL_FORCE}")
+    check(rel_d <= TOL_EVAL_DERIV,
+          f"{label}: relative dE/dlambda error {rel_d:.3e} <= "
+          f"{TOL_EVAL_DERIV}")
+    return E_c, f_c, d_c
+
+
+def run_md(make_run, capacity, p, v, box, gvals, data, n_timed, guard_exc):
+    """One warm-up chunk and ``n_timed`` timed chunks of CHUNK_STEPS steps,
+    with bench.py's retries: capacity + 8 after a cell overflow, K halved
+    after a skin violation (the chunk is then run again from its start).
+    ``make_run(capacity, reuse_steps)`` builds the MD step.  Returns (p, v,
+    energy, seconds per chunk, the step's config)."""
+    import torch
+    state = {"run": None, "capacity": capacity, "reuse": None}
+
+    def run_chunk(p, v):
+        while True:
+            if state["run"] is None:
+                state["run"] = make_run(state["capacity"], state["reuse"])
+                state["reuse"] = state["run"].config["reuse_steps"]
+            try:
+                return state["run"](p, v, box, gvals, data, CHUNK_STEPS)
+            except guard_exc as exc:
+                if "capacity overflow" in str(exc):
+                    state["capacity"] += 8
+                elif "skin violation" in str(exc) and state["reuse"] > 1:
+                    state["reuse"] = max(1, state["reuse"] // 2)
+                else:
+                    raise
+                state["run"] = None
+                print(f"md: retry after guard: {exc}")
+
+    chunk_s = []
+    for _ in range(1 + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p, v, energy = run_chunk(p, v)
+        torch.cuda.synchronize()
+        chunk_s.append(time.time() - t0)
+    return p, v, energy, chunk_s, state["run"].config
+
+
+def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
+              n_atoms, card):
+    """Energy finite, water constraints, temperature; prints the median and
+    range of ms/step and ns/day of the timed chunks."""
+    e_md = float(energy)
+    check(math.isfinite(e_md), f"{label}: energy {e_md:.3f} kJ/mol is finite")
+    p64 = p.double().cpu().numpy()[first_water:].reshape(-1, 3, 3)
+    c_err = 0.0
+    for (a, b), d in (((0, 1), D_OH), ((0, 2), D_OH), ((1, 2), D_HH)):
+        c_err = max(c_err, float(np.abs(np.linalg.norm(
+            p64[:, a] - p64[:, b], axis=-1) - d).max()))
+    check(c_err <= TOL_CONSTRAINT,
+          f"{label}: max |constraint distance - target| {c_err:.3e} nm <= "
+          f"{TOL_CONSTRAINT}")
+    v64 = v.double().cpu().numpy()
+    temp = float(np.sum(masses[:, None] * v64 * v64)) / (KB * n_dof)
+    check(270.0 <= temp <= 330.0,
+          f"{label}: temperature {temp:.1f} K in 300 +- 30")
+    ms = sorted(1000.0 * t / CHUNK_STEPS for t in chunk_s[1:])
+    ms_step = float(np.median(ms))
+    ns_day = DT_PS * 1e-3 * 86400.0 / (1e-3 * ms_step)
+    print(f"{label}: {ms_step:.3f} ms/step median of {len(ms)} x "
+          f"{CHUNK_STEPS} steps (range {ms[0]:.3f}-{ms[-1]:.3f}), "
+          f"{ns_day:.2f} ns/day at {DT_PS} ps ({n_atoms} atoms, {card})")
+
+
 def main():
     if not os.path.isdir(PACKAGE) or not os.path.exists(STATE_FILE):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -188,8 +498,6 @@ def main():
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
     from nonbondedslicing_tpu_torch.ops import neighbors, plan as plan_mod
-    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
-    from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
     from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
     from nonbondedslicing_tpu_torch.runtime.fastpath import (DEFAULT_SKIN,
                                                              make_md_step)
@@ -220,6 +528,11 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas: " + line.strip())
 
+    def reset_launches():
+        for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
     # ---- system, plan, state
     t0 = time.time()
     system, force, box_len, constraints = build_system(nbt)
@@ -228,7 +541,7 @@ def main():
     blob = np.load(STATE_FILE)
     pos_np = np.asarray(blob["positions"], dtype=np.float64)
     vel_np = np.asarray(blob["velocities"], dtype=np.float64)
-    masses = np.tile([15.999, 1.008, 1.008], N_MOLECULES)
+    masses = np.tile(WATER_MASSES, N_MOLECULES)
     counts = neighbors.choose_cell_grid(plan.box0, plan.cutoff, n,
                                         target_skin=DEFAULT_SKIN)[0]
     occ = max_cell_occupancy(pos_np, plan.box0, counts)
@@ -262,190 +575,168 @@ def main():
     results = {}
     reps = 20
 
-    def pair_args(energies):
-        return (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
-                st["sexcl"], lam_c_nn, lam_v_nn, box, pc, energies)
-
-    def slice_e(moments):
-        m = moments.double().sum(0)
-        return torch.stack([m[:, a, a] if a == b else m[:, a, b] + m[:, b, a]
-                            for a, b in zip(*np.triu_indices(pc.nsub))])
-
+    n_pair, _ = pair_counts(slot_pos, st["table"], st["sexcl"], box,
+                            plan.cutoff, n, pc.counts)
+    print(f"bound inputs: {n_pair} pairs within the cutoff")
     for name, energies in (("pair_column", False),
                            ("pair_column_energies", True)):
-        f_k, m_k = cuda_direct.pair_column(*pair_args(energies))
-        f_p, m_p = cuda_direct.pair_column_plain(*pair_args(energies))
-        torch.cuda.synchronize()
-        err = float((f_k - f_p).abs().max())
-        fmax = float(f_p.abs().max())
-        check(err <= TOL_FORCE * (fmax + 1.0),
-              f"{name}: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
-              f"(max|F| {fmax:.1f} + 1)")
-        if energies:
-            e_k, e_p = slice_e(m_k), slice_e(m_p)
-            e_err = float((e_k - e_p).abs().max())
-            emax = float(e_p.abs().max())
-            check(e_err <= TOL_ENERGY * (emax + 1.0),
-                  f"{name}: slice energies max|dE| {e_err:.3e} <= "
-                  f"{TOL_ENERGY} * (max|E| {emax:.1f} + 1)")
-        ms, plain_ms = timed_pair(
-            lambda: cuda_direct.pair_column(*pair_args(energies)),
-            lambda: cuda_direct.pair_column_plain(*pair_args(energies)),
-            reps)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        args = (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
+                st["sexcl"], lam_c_nn, lam_v_nn, box, pc, energies)
+        results[name] = pair_kernel_check(
+            name, cuda_direct.pair_column, cuda_direct.pair_column_plain,
+            args, pc, reps)
+        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
+            pc, energies, n_pair, 0, cell_kernel=False)
 
-    recip = recip_box_vectors(box)
-    grid_shape = cfg["pme_grid"]
-    spread_args = (slot_pos, st["slot_q"], st["slot_sub"], recip, grid_shape,
-                   pc.nsub)
-    grid_k = cuda_pme.pme_spread(*spread_args)
-    grid_p = cuda_pme.pme_spread_plain(*spread_args)
-    torch.cuda.synchronize()
-    err = float((grid_k - grid_p).abs().max())
-    gmax = float(grid_p.abs().max())
-    check(err <= TOL_GRID * gmax,
-          f"pme_spread: grid max|d| {err:.3e} <= {TOL_GRID} * max {gmax:.3f}")
-    check(torch.equal(grid_k, cuda_pme.pme_spread(*spread_args)),
-          "pme_spread: bitwise repeatable (fixed-point adds)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_spread(*spread_args),
-                              lambda: cuda_pme.pme_spread_plain(*spread_args),
-                              reps)
-    results["pme_spread"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    print(f"pme_spread: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-
-    eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
-        grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
-        device=dev).to(f32)
-    spec = torch.fft.rfftn(grid_k, dim=(1, 2, 3))
-    lam_nn = lam[:, 0][sl_tab]
-    phi = torch.fft.irfftn(
-        torch.einsum("st,txyk->sxyk", lam_nn.to(spec.dtype), spec * eterm),
-        s=tuple(grid_shape), dim=(1, 2, 3), norm="forward").contiguous()
-    interp_args = (phi, slot_pos, st["slot_q"], st["slot_sub"], recip)
-    f_k = cuda_pme.pme_interp(*interp_args)
-    f_p = cuda_pme.pme_interp_plain(*interp_args)
-    torch.cuda.synchronize()
-    err = float((f_k - f_p).abs().max())
-    fmax = float(f_p.abs().max())
-    check(err <= TOL_FORCE * (fmax + 1.0),
-          f"pme_interp: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
-          f"(max|F| {fmax:.1f} + 1)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_interp(*interp_args),
-                              lambda: cuda_pme.pme_interp_plain(*interp_args),
-                              reps)
-    results["pme_interp"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    print(f"pme_interp: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results.update(pme_kernel_checks(
+        ("pme_spread", "pme_spread_energies", "pme_interp"), slot_pos, st,
+        box, cfg, plan, lam_c_nn, reps))
 
     # ---- 4. whole evaluation: card f32 vs CPU f64 (plain twins)
-    t0 = time.time()
-    e_g, f_g, _ = apply(pos, box, gvals, data, st)
-    torch.cuda.synchronize()
-    f64 = torch.float64
-    data_c = engine_mod.plan_data(plan, dtype=f64)
-    pos_c = torch.as_tensor(pos_np)
-    box_c = torch.as_tensor(box_np)
-    gvals_c = torch.ones(2, dtype=f64)
-    prep_c, apply_c, _ = fused_mod.make_fused_engine(
-        plan, cell_capacity=capacity,
-        target_skin=DEFAULT_SKIN, energies=True)
-    e_c, f_c, _ = apply_c(pos_c, box_c, gvals_c, data_c,
-                          prep_c(pos_c, box_c, gvals_c, data_c))
-    lam_c = slice_lambdas(plan.lam_source, gvals_c)
-    E_g = float(engine_mod.contract_energy(e_g.cpu(), lam_c))
-    E_c = float(engine_mod.contract_energy(e_c, lam_c))
-    rel_e = abs(E_g - E_c) / abs(E_c)
-    f_err = float((f_g.cpu().double() - f_c).abs().max()) / float(
-        f_c.abs().max())
-    d_g = engine_mod.parameter_derivatives(e_g.cpu(), plan.deriv_mask)
-    d_c = engine_mod.parameter_derivatives(e_c, plan.deriv_mask)
-    rel_d = float(((d_g - d_c).abs() / d_c.abs().clamp(min=1.0)).max())
-    print(f"evaluation: E card f32 {E_g:.6f}, CPU f64 {E_c:.6f} kJ/mol; "
-          f"dE/dlambda card {d_g.tolist()}, CPU {d_c.tolist()} "
-          f"({time.time() - t0:.1f} s)")
-    check(math.isfinite(E_g) and rel_e <= TOL_EVAL_ENERGY,
-          f"evaluation: relative energy error {rel_e:.3e} <= "
-          f"{TOL_EVAL_ENERGY}")
-    check(f_err <= TOL_EVAL_FORCE,
-          f"evaluation: force error {f_err:.3e} of max|F| <= {TOL_EVAL_FORCE}")
-    check(rel_d <= TOL_EVAL_DERIV,
-          f"evaluation: relative dE/dlambda error {rel_d:.3e} <= "
-          f"{TOL_EVAL_DERIV}")
+    evaluation_check("evaluation", plan, capacity, apply, st, pos, box, gvals,
+                     data, pos_np, box_np, np.ones(2))
 
-    # ---- 5. MD: the main path, counted
-    run_state = {"run": None, "capacity": capacity, "reuse": None}
+    # ---- 5. MD: the benchmark path, counted
+    def make_bench_run(cap, reuse):
+        return make_md_step(plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints)
 
-    def run_chunk(p, v):
-        """One chunk with bench.py's capacity / reuse retries."""
-        while True:
-            if run_state["run"] is None:
-                run_state["run"] = make_md_step(
-                    plan, masses, dt=DT_PS, dtype=f32,
-                    cell_capacity=run_state["capacity"],
-                    reuse_steps=run_state["reuse"], constraints=constraints)
-                run_state["reuse"] = run_state["run"].config["reuse_steps"]
-            try:
-                return run_state["run"](p, v, box, gvals, data, CHUNK_STEPS)
-            except nbt.OpenMMException as exc:
-                if "capacity overflow" in str(exc):
-                    run_state["capacity"] += 8
-                elif "skin violation" in str(exc) and run_state["reuse"] > 1:
-                    run_state["reuse"] = max(1, run_state["reuse"] // 2)
-                else:
-                    raise
-                run_state["run"] = None
-                print(f"md: retry after guard: {exc}")
-
-    for key in cuda_direct.LAUNCHES:
-        cuda_direct.LAUNCHES[key] = 0
-    for key in cuda_pme.LAUNCHES:
-        cuda_pme.LAUNCHES[key] = 0
-    p = torch.as_tensor(pos_np, device=dev).to(f32)
-    v = torch.as_tensor(vel_np, device=dev).to(f32)
-    chunk_s = []
-    for _ in range(1 + TIMED_CHUNKS):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        p, v, energy = run_chunk(p, v)
-        torch.cuda.synchronize()
-        chunk_s.append(time.time() - t0)
+    reset_launches()
+    p, v, energy, chunk_s, config = run_md(
+        make_bench_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
+        TIMED_CHUNKS, nbt.OpenMMException)
     launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
-    config = run_state["run"].config
     print(f"md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, timed "
           f"chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
-
-    e_md = float(energy)
-    check(math.isfinite(e_md), f"md: energy {e_md:.3f} kJ/mol is finite")
-    p64 = p.double().cpu().numpy().reshape(-1, 3, 3)
-    c_err = 0.0
-    for (a, b), d in (((0, 1), D_OH), ((0, 2), D_OH), ((1, 2), D_HH)):
-        c_err = max(c_err, float(np.abs(np.linalg.norm(
-            p64[:, a] - p64[:, b], axis=-1) - d).max()))
-    check(c_err <= TOL_CONSTRAINT,
-          f"md: max |constraint distance - target| {c_err:.3e} nm <= "
-          f"{TOL_CONSTRAINT}")
-    v64 = v.double().cpu().numpy()
-    n_dof = 3 * n - 3 * N_MOLECULES - 3
-    temp = float(np.sum(masses[:, None] * v64 * v64)) / (KB * n_dof)
-    check(270.0 <= temp <= 330.0, f"md: temperature {temp:.1f} K in 300 +- 30")
     for name in KERNELS:
-        check(launches[name] > 0,
-              f"md: {name} launched {launches[name]} times")
-    ms = sorted(1000.0 * t / CHUNK_STEPS for t in chunk_s[1:])
-    ms_step = float(np.median(ms))
-    ns_day = DT_PS * 1e-3 * 86400.0 / (1e-3 * ms_step)
-    print(f"md: {ms_step:.3f} ms/step median of {TIMED_CHUNKS} x "
-          f"{CHUNK_STEPS} steps (range {ms[0]:.3f}-{ms[-1]:.3f}), "
-          f"{ns_day:.2f} ns/day at {DT_PS} ps ({n} atoms, {card})")
+        if name in PATH_KERNELS["rigid"]:
+            check(launches[name] > 0,
+                  f"md: {name} launched {launches[name]} times")
+        else:
+            check(launches[name] == 0,
+                  f"md: {name} launched {launches[name]} times (not this "
+                  f"path's kernel)")
+    md_checks("md", p, v, energy, masses, 0, 3 * n - 3 * N_MOLECULES - 3,
+              chunk_s, n, card)
+    path_launches = {"rigid": launches}
+
+    # ---- 6. the solute path: the min-image cell kernel
+    t0 = time.time()
+    (s_system, s_force, s_pos_np, s_masses, s_constraints, s_bonds,
+     kept) = build_solute_system(nbt, pos_np, box_len)
+    s_plan = plan_mod.build_plan(s_force, s_system)
+    s_n = s_plan.num_particles
+    n_waters = (s_n - SOLUTE_SITES) // 3
+    s_counts = neighbors.choose_cell_grid(s_plan.box0, s_plan.cutoff, s_n,
+                                          target_skin=DEFAULT_SKIN)[0]
+    s_occ = max_cell_occupancy(s_pos_np, s_plan.box0, s_counts)
+    s_capacity = max(8, int(np.ceil((s_occ + 8) / 4) * 4))
+    print(f"solute: {s_n} atoms ({SOLUTE_SITES} chain sites, {n_waters} "
+          f"waters; {N_MOLECULES - n_waters} waters within {CAVITY_NM} nm "
+          f"of a site removed), cells {s_counts}, capacity {s_capacity}, "
+          f"emax {s_plan.exclusion_list.shape[1]}, {len(s_bonds)} bonds, "
+          f"built in {time.time() - t0:.1f} s")
+    # the fused exclusion corrections reach only the 27 neighbour cells
+    width = float(np.min(np.diag(s_plan.box0) / np.asarray(s_counts)))
+    span = exclusion_span(s_pos_np, s_plan.exclusion_pairs, box_len)
+    check(span < width, f"solute: excluded pairs span at most {span:.4f} nm "
+          f"< one cell width {width:.4f} nm")
+    s_vel_np = solute_velocities(vel_np, kept)
+
+    s_prepare, s_apply, s_cfg = fused_mod.make_fused_engine(
+        s_plan, cell_capacity=s_capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    s_pc = s_cfg["pair"]
+    print(f"solute shapes: cells {s_pc.counts} x {s_pc.capacity} slots, "
+          f"nsub {s_pc.nsub}, emax {s_pc.emax}, PME grid "
+          f"{s_cfg['pme_grid']}, lambdas {s_plan.global_defaults.tolist()}")
+    s_data = engine_mod.plan_data(s_plan, device=dev, dtype=f32)
+    s_pos = torch.as_tensor(s_pos_np, device=dev).to(f32)
+    s_gvals = torch.as_tensor(s_plan.global_defaults, device=dev).to(f32)
+    s_st = s_prepare(s_pos, box, s_gvals, s_data)
+    check(int(s_st["overflow"]) == 0, "no cell overflow at the solute state")
+    g, C = s_pc.n_cells, s_pc.capacity
+    s_slot_pos = (torch.cat([s_pos, s_pos.new_zeros((1, 3))])[s_st["slots"]]
+                  .reshape(g, C, 3).transpose(1, 2)
+                  + s_st["padfix3"]).contiguous()
+    s_lam = slice_lambdas(s_plan.lam_source, s_gvals)
+    s_sl_tab = torch.as_tensor(s_plan.slice_table, dtype=torch.int64,
+                               device=dev)
+    n_pair, n_excl = pair_counts(s_slot_pos, s_st["table"], s_st["sexcl"],
+                                 box, s_plan.cutoff, s_n, s_pc.counts)
+    check(n_excl == len(s_plan.exclusion_pairs),
+          f"solute: all {len(s_plan.exclusion_pairs)} excluded pairs lie in "
+          f"the 27-cell neighbourhoods ({n_excl} found)")
+    print(f"bound inputs: {n_pair} pairs within the cutoff, {n_excl} "
+          f"excluded pairs")
+    s_lam_c_nn = s_lam[:, 0][s_sl_tab].contiguous()
+    for name, energies in (("pair_cell", False),
+                           ("pair_cell_energies", True)):
+        args = (s_slot_pos, s_st["slot_par"], s_st["slot_sub"],
+                s_st["table"], s_st["sexcl"], s_lam_c_nn,
+                s_lam[:, 1][s_sl_tab].contiguous(), box, s_pc, energies, s_n)
+        results[name] = pair_kernel_check(
+            name, cuda_direct.pair_cell, cuda_direct.pair_cell_plain, args,
+            s_pc, reps)
+        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
+            s_pc, energies, n_pair, n_excl, cell_kernel=True)
+    results.update(pme_kernel_checks(
+        ("pme_spread_solute", "pme_spread_energies_solute",
+         "pme_interp_solute"), s_slot_pos, s_st, box,
+        s_cfg, s_plan, s_lam_c_nn, reps))
+
+    _, _, d_exact = evaluation_check(
+        "solute evaluation", s_plan, s_capacity, s_apply, s_st, s_pos, box,
+        s_gvals, s_data, s_pos_np, box_np, s_plan.global_defaults)
+    # the part of that gap no f32 evaluation can close: the solute's weak
+    # coupling makes dE/dlambda_elec a few kJ/mol
+    _, _, d_rounded = cpu_evaluation(
+        s_plan, s_capacity, s_pos.double().cpu().numpy(),
+        box.double().cpu().numpy(), s_gvals.double().cpu().numpy())
+    print(f"solute evaluation: rounding the inputs to f32 moves dE/dlambda "
+          f"of the f64 evaluation by {(d_rounded - d_exact).tolist()} kJ/mol")
+
+    def make_solute_run(cap, reuse):
+        return make_md_step(s_plan, s_masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=s_constraints, bonds=s_bonds)
+
+    reset_launches()
+    p, v, energy, chunk_s, config = run_md(
+        make_solute_run, s_capacity, s_pos,
+        torch.as_tensor(s_vel_np, device=dev).to(f32), box, s_gvals, s_data,
+        SOLUTE_TIMED_CHUNKS, nbt.OpenMMException)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"solute md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
+          f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
+          f"{launches}")
+    for name in KERNELS:
+        if name in PATH_KERNELS["solute"]:
+            check(launches[name] > 0,
+                  f"solute md: {name} launched {launches[name]} times")
+        else:
+            check(launches[name] == 0,
+                  f"solute md: {name} launched {launches[name]} times (the "
+                  f"cell kernel carries the direct space)")
+    span = exclusion_span(p.double().cpu().numpy(), s_plan.exclusion_pairs,
+                          box_len)
+    check(span < width, f"solute md: excluded pairs span at most "
+          f"{span:.4f} nm < one cell width {width:.4f} nm after the run")
+    md_checks("solute md", p, v, energy, s_masses, SOLUTE_SITES,
+              3 * s_n - 3 * n_waters - 3, chunk_s, s_n, card)
+    path_launches["solute"] = launches
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source="nonbondedslicing_tpu_torch/" + KERNELS[name][0],
-             replaces=KERNELS[name][1], launches=launches[name],
+        dict(name=name, path=path, route="cuda",
+             source="nonbondedslicing_tpu_torch/" + KERNELS[kernel][0],
+             replaces=KERNELS[kernel][1],
+             launches=path_launches[path][kernel], library_ms=None,
              **results[name])
-        for name in KERNELS]}))
+        for name, kernel, path in ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,31 +10,35 @@ namespace nbs {
 
 constexpr int kPmeOrder = 5;
 
+__device__ __forceinline__ float floor_real(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_real(double x) { return ::floor(x); }
+
 // Values (and, when dtheta is not null, derivatives) at fractional offset
-// `frac` in [0, 1).
-__device__ inline void bspline5(float frac, float* theta, float* dtheta) {
-    float data[kPmeOrder];
+// `frac` in [0, 1), in Real (float, or double for energy evaluations).
+template <typename Real>
+__device__ inline void bspline5(Real frac, Real* theta, Real* dtheta) {
+    Real data[kPmeOrder];
 #pragma unroll
-    for (int k = 0; k < kPmeOrder; ++k) data[k] = 0.0f;
+    for (int k = 0; k < kPmeOrder; ++k) data[k] = Real(0);
     data[1] = frac;
-    data[0] = 1.0f - frac;
+    data[0] = Real(1) - frac;
 #pragma unroll
     for (int k = 3; k < kPmeOrder; ++k) {
-        const float div = 1.0f / static_cast<float>(k - 1);
+        const Real div = Real(1) / static_cast<Real>(k - 1);
         data[k - 1] = div * frac * data[k - 2];
 #pragma unroll
         for (int l = 1; l < k - 1; ++l) {
             data[k - l - 1] = div * ((frac + l) * data[k - l - 2]
                                      + (k - l - frac) * data[k - l - 1]);
         }
-        data[0] = div * (1.0f - frac) * data[0];
+        data[0] = div * (Real(1) - frac) * data[0];
     }
     if (dtheta != nullptr) {
         dtheta[0] = -data[0];
 #pragma unroll
         for (int k = 1; k < kPmeOrder; ++k) dtheta[k] = data[k - 1] - data[k];
     }
-    const float div = 1.0f / static_cast<float>(kPmeOrder - 1);
+    const Real div = Real(1) / static_cast<Real>(kPmeOrder - 1);
     data[kPmeOrder - 1] = div * frac * data[kPmeOrder - 2];
 #pragma unroll
     for (int l = 1; l < kPmeOrder - 1; ++l) {
@@ -42,7 +46,7 @@ __device__ inline void bspline5(float frac, float* theta, float* dtheta) {
             div * ((frac + l) * data[kPmeOrder - l - 2]
                    + (kPmeOrder - l - frac) * data[kPmeOrder - l - 1]);
     }
-    data[0] = div * (1.0f - frac) * data[0];
+    data[0] = div * (Real(1) - frac) * data[0];
 #pragma unroll
     for (int k = 0; k < kPmeOrder; ++k) theta[k] = data[k];
 }
@@ -51,12 +55,12 @@ __device__ inline void bspline5(float frac, float* theta, float* dtheta) {
 // as its three Cartesian components; recip is the row-major (3, 3)
 // reciprocal box.  Points base + k (mod n), k < kPmeOrder, carry the
 // weights theta[k].
-__device__ inline void grid_base(float x, float y, float z,
-                                 const float* recip, int axis, int n,
-                                 int* base, float* frac) {
-    const float f = x * recip[axis] + y * recip[3 + axis] + z * recip[6 + axis];
-    const float t = (f - floorf(f)) * static_cast<float>(n);
-    const float ti = floorf(t);
+template <typename Real>
+__device__ inline void grid_base(Real x, Real y, Real z, const Real* recip,
+                                 int axis, int n, int* base, Real* frac) {
+    const Real f = x * recip[axis] + y * recip[3 + axis] + z * recip[6 + axis];
+    const Real t = (f - floor_real(f)) * static_cast<Real>(n);
+    const Real ti = floor_real(t);
     *frac = t - ti;
     *base = static_cast<int>(ti) % n;
 }

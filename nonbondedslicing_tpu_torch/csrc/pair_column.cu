@@ -2,11 +2,12 @@
 //
 // Replaces nonbondedslicing_tpu/ops/pallas_direct.py::make_pallas_column_kernel
 // (pallas_call at pallas_direct.py:609) with its physics from
-// _make_pair_block (pallas_direct.py:64-313): LJ with sigma/2 + sigma/2 and
-// 2 sqrt(eps) * 2 sqrt(eps), Coulomb by reaction field or Ewald erfc (the
-// A&S 7.1.26 polynomial of pallas_direct.py:49-57), the quintic switch,
-// lambda per pair from the two atoms' subsets, and (ENERGIES) unscaled
-// Coulomb / vdW energies summed per (home subset, partner subset).
+// _make_pair_block (pallas_direct.py:64-313, here pair_common.cuh): LJ with
+// sigma/2 + sigma/2 and 2 sqrt(eps) * 2 sqrt(eps), Coulomb by reaction field
+// or Ewald erfc (the A&S 7.1.26 polynomial of pallas_direct.py:49-57), the
+// quintic switch, lambda per pair from the two atoms' subsets, and
+// (ENERGIES) unscaled Coulomb / vdW energies summed per (home subset,
+// partner subset).
 //
 // Design: one block per home cell, one thread per home slot, a FULL shell of
 // 27 neighbour cells, row forces only.  The TPU kernel visits each pair once
@@ -26,20 +27,11 @@
 // threads for 132 SMs, so the card is underfilled; a half shell with
 // fixed-point reactions or several blocks per cell is later work.
 
-#include <cuda_runtime.h>
+#include "pair_common.cuh"
 
 namespace {
 
-constexpr int kMaxSubsets = 8;
-constexpr int kMaxExclusions = 16;
-constexpr int kModeReactionField = 0;
-constexpr int kModeEwald = 1;
-constexpr float kTwoOverSqrtPi = 1.1283791670955126f;
-
-struct PairParams {
-    int ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch;
-    float cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke;
-};
+using namespace nbs_pair;
 
 template <bool ENERGIES>
 __global__ void pair_column_kernel(const float* __restrict__ pos,
@@ -56,18 +48,7 @@ __global__ void pair_column_kernel(const float* __restrict__ pos,
     extern __shared__ float smem[];
     const int C = p.capacity;
     const int nsub = p.nsub;
-    const int nmom = 2 * nsub * nsub;
-    float* sx = smem;
-    float* sy = sx + C;
-    float* sz = sy + C;
-    float* sq = sz + C;
-    float* ssig = sq + C;
-    float* seps = ssig + C;
-    int* ssub = reinterpret_cast<int*>(seps + C);
-    int* sid = ssub + C;
-    float* slc = reinterpret_cast<float*>(sid + C);
-    float* slv = slc + nsub * nsub;
-    float* swarp = slv + nsub * nsub;   // (warps, 2, nsub, nsub), ENERGIES
+    const Panel s = carve_panel(smem, C, nsub);
 
     const int cell = blockIdx.x;
     const int cz = cell % p.ncz;
@@ -77,8 +58,8 @@ __global__ void pair_column_kernel(const float* __restrict__ pos,
     const bool active = t < C;
 
     for (int k = t; k < nsub * nsub; k += blockDim.x) {
-        slc[k] = lam_c[k];
-        slv[k] = lam_v[k];
+        s.lam_c[k] = lam_c[k];
+        s.lam_v[k] = lam_v[k];
     }
     float box[9];
 #pragma unroll
@@ -110,7 +91,6 @@ __global__ void pair_column_kernel(const float* __restrict__ pos,
         ec[b] = 0.f;
         ev[b] = 0.f;
     }
-    const float sw_width = p.cutoff - p.switch_distance;
 
     for (int o = 0; o < 27; ++o) {
         const int dx = o / 9 - 1, dy = (o / 3) % 3 - 1, dz = o % 3 - 1;
@@ -128,86 +108,40 @@ __global__ void pair_column_kernel(const float* __restrict__ pos,
         const int nc = (nxc * p.ncy + nyc) * p.ncz + nzc;
         __syncthreads();   // previous cell's panel fully consumed
         for (int k = t; k < C; k += blockDim.x) {
-            sx[k] = pos[(nc * 3 + 0) * C + k] + shx;
-            sy[k] = pos[(nc * 3 + 1) * C + k] + shy;
-            sz[k] = pos[(nc * 3 + 2) * C + k] + shz;
-            sq[k] = par[(nc * 3 + 0) * C + k] * p.sqrt_ke;
-            ssig[k] = par[(nc * 3 + 1) * C + k];
-            seps[k] = par[(nc * 3 + 2) * C + k];
-            ssub[k] = sub[nc * C + k];
-            sid[k] = ids[nc * C + k];
+            s.x[k] = pos[(nc * 3 + 0) * C + k] + shx;
+            s.y[k] = pos[(nc * 3 + 1) * C + k] + shy;
+            s.z[k] = pos[(nc * 3 + 2) * C + k] + shz;
+            s.q[k] = par[(nc * 3 + 0) * C + k] * p.sqrt_ke;
+            s.sig[k] = par[(nc * 3 + 1) * C + k];
+            s.eps[k] = par[(nc * 3 + 2) * C + k];
+            s.sub[k] = sub[nc * C + k];
+            s.id[k] = ids[nc * C + k];
         }
         __syncthreads();
         if (!active) continue;
         const bool self_cell = (o == 13);
         for (int j = 0; j < C; ++j) {
             if (self_cell && j == t) continue;
-            const float ddx = xi - sx[j];
-            const float ddy = yi - sy[j];
-            const float ddz = zi - sz[j];
-            // rounded exactly as the plain twin's ((dx*dx + dy*dy) + dz*dz),
-            // without FMA contraction, so both take the same cutoff
-            // decision for pairs at the cutoff
-            const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(ddx, ddx),
-                                                 __fmul_rn(ddy, ddy)),
-                                       __fmul_rn(ddz, ddz));
+            const float ddx = xi - s.x[j];
+            const float ddy = yi - s.y[j];
+            const float ddz = zi - s.z[j];
+            const float r2 = r2_rn(ddx, ddy, ddz);
             if (r2 >= p.cutoff2) continue;
-            const int idj = sid[j];
+            const int idj = s.id[j];
             bool excluded = false;
 #pragma unroll
             for (int e = 0; e < kMaxExclusions; ++e) excluded |= (exi[e] == idj);
             if (excluded) continue;
 
-            const float rinv = rsqrtf(r2);
-            const float r = r2 * rinv;
-            const float qq = qi * sq[j];
-            const float sig = sgi + ssig[j];
-            const float eps = epi * seps[j];
-            float sig2 = sig * rinv;
-            sig2 *= sig2;
-            const float sig6 = sig2 * sig2 * sig2;
-
-            float sw_val = 1.f, sw_der = 0.f;
-            if (p.use_switch) {
-                const float u = fminf(fmaxf((r - p.switch_distance) / sw_width, 0.f), 1.f);
-                sw_val = 1.f + u * u * u * (-10.f + u * (15.f - u * 6.f));
-                sw_der = u * u * (-30.f + u * (60.f - u * 30.f)) / sw_width;
-            }
-            float dedr_vdw = sw_val * eps * (12.f * sig6 - 6.f) * sig6 * rinv * rinv;
-            float e_vdw = eps * (sig6 - 1.f) * sig6;
-            float dedr_coul, e_coul;
-            if (p.mode == kModeEwald) {
-                const float ar = p.alpha * r;
-                const float tt = 1.f / (1.f + 0.3275911f * ar);
-                const float poly = tt * (0.254829592f + tt * (-0.284496736f + tt * (1.421413741f
-                                   + tt * (-1.453152027f + tt * 1.061405429f))));
-                const float gauss = expf(-ar * ar);
-                const float erfc_ar = poly * gauss;
-                e_coul = qq * rinv * erfc_ar;
-                dedr_coul = qq * rinv * rinv * rinv * (erfc_ar + kTwoOverSqrtPi * ar * gauss);
-            } else {
-                e_coul = qq * (rinv + p.krf * r2 - p.crf);
-                dedr_coul = qq * (rinv - 2.f * p.krf * r2) * rinv * rinv;
-            }
-            if (p.use_switch) {
-                dedr_vdw -= e_vdw * sw_der * rinv;
-                e_vdw *= sw_val;
-            }
-            const int sj = ssub[j];
-            const float factor = slv[si * nsub + sj] * dedr_vdw
-                                 + slc[si * nsub + sj] * dedr_coul;
+            const PairTerms pt = pair_terms(r2, qi * s.q[j], sgi + s.sig[j],
+                                            epi * s.eps[j], p);
+            const int sj = s.sub[j];
+            const float factor = s.lam_v[si * nsub + sj] * pt.dedr_vdw
+                                 + s.lam_c[si * nsub + sj] * pt.dedr_coul;
             fx += factor * ddx;
             fy += factor * ddy;
             fz += factor * ddz;
-            if (ENERGIES) {
-#pragma unroll
-                for (int b = 0; b < kMaxSubsets; ++b) {
-                    if (b == sj) {
-                        ec[b] += 0.5f * e_coul;
-                        ev[b] += 0.5f * e_vdw;
-                    }
-                }
-            }
+            if (ENERGIES) add_half(ec, ev, sj, pt.e_coul, pt.e_vdw);
         }
     }
 
@@ -216,35 +150,7 @@ __global__ void pair_column_kernel(const float* __restrict__ pos,
         forces[(cell * 3 + 1) * C + t] = fy;
         forces[(cell * 3 + 2) * C + t] = fz;
     }
-    if (!ENERGIES) return;
-
-    // per-cell moments (2, nsub, nsub): warp shuffles, then warps in order
-    const int lane = t & 31;
-    const int warp = t >> 5;
-    const int nwarps = blockDim.x >> 5;
-    for (int a = 0; a < nsub; ++a) {
-#pragma unroll
-        for (int b = 0; b < kMaxSubsets; ++b) {
-            if (b >= nsub) continue;   // nsub is uniform: no divergence
-            float vc = (active && si == a) ? ec[b] : 0.f;
-            float vv = (active && si == a) ? ev[b] : 0.f;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                vc += __shfl_down_sync(0xffffffffu, vc, off);
-                vv += __shfl_down_sync(0xffffffffu, vv, off);
-            }
-            if (lane == 0) {
-                swarp[warp * nmom + a * nsub + b] = vc;
-                swarp[warp * nmom + (nsub + a) * nsub + b] = vv;
-            }
-        }
-    }
-    __syncthreads();
-    for (int k = t; k < nmom; k += blockDim.x) {
-        float acc = 0.f;
-        for (int w = 0; w < nwarps; ++w) acc += swarp[w * nmom + k];
-        moments[cell * nmom + k] = acc;
-    }
+    if (ENERGIES) store_moments(ec, ev, active, si, s, nsub, moments, cell);
 }
 
 }  // namespace
@@ -272,25 +178,15 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
                  cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke};
     const int threads = ((capacity + 31) / 32) * 32;
-    const int nmom = 2 * nsub * nsub;
-    const size_t shmem = sizeof(float) * (8 * capacity + 2 * nsub * nsub
-                                          + (threads / 32) * nmom);
+    const size_t shmem = panel_bytes(capacity, nsub, threads);
     const dim3 grid(ncx * ncy * ncz);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (energies) {
-        pair_column_kernel<true><<<grid, threads, shmem, st>>>(
-            static_cast<const float*>(pos), static_cast<const float*>(par),
-            static_cast<const int*>(sub), static_cast<const int*>(ids),
-            static_cast<const int*>(excl), static_cast<const float*>(lam_c),
-            static_cast<const float*>(lam_v), static_cast<const float*>(box),
-            static_cast<float*>(forces), static_cast<float*>(moments), p);
-    } else {
-        pair_column_kernel<false><<<grid, threads, shmem, st>>>(
-            static_cast<const float*>(pos), static_cast<const float*>(par),
-            static_cast<const int*>(sub), static_cast<const int*>(ids),
-            static_cast<const int*>(excl), static_cast<const float*>(lam_c),
-            static_cast<const float*>(lam_v), static_cast<const float*>(box),
-            static_cast<float*>(forces), static_cast<float*>(moments), p);
-    }
+    auto kernel = energies ? pair_column_kernel<true> : pair_column_kernel<false>;
+    kernel<<<grid, threads, shmem, st>>>(
+        static_cast<const float*>(pos), static_cast<const float*>(par),
+        static_cast<const int*>(sub), static_cast<const int*>(ids),
+        static_cast<const int*>(excl), static_cast<const float*>(lam_c),
+        static_cast<const float*>(lam_v), static_cast<const float*>(box),
+        static_cast<float*>(forces), static_cast<float*>(moments), p);
     return static_cast<int>(cudaGetLastError());
 }

@@ -47,14 +47,14 @@ __global__ void interp_kernel(const float* __restrict__ phi,
     for (int i = 0; i < 9; ++i) recip[i] = recip_g[i];
     int bx, by, bz;
     float ux, uy, uz;
-    nbs::grid_base(x, y, z, recip, 0, nx, &bx, &ux);
-    nbs::grid_base(x, y, z, recip, 1, ny, &by, &uy);
-    nbs::grid_base(x, y, z, recip, 2, nz, &bz, &uz);
+    nbs::grid_base<float>(x, y, z, recip, 0, nx, &bx, &ux);
+    nbs::grid_base<float>(x, y, z, recip, 1, ny, &by, &uy);
+    nbs::grid_base<float>(x, y, z, recip, 2, nz, &bz, &uz);
     float tx[nbs::kPmeOrder], ty[nbs::kPmeOrder], tz[nbs::kPmeOrder];
     float dx[nbs::kPmeOrder], dy[nbs::kPmeOrder], dz[nbs::kPmeOrder];
-    nbs::bspline5(ux, tx, dx);
-    nbs::bspline5(uy, ty, dy);
-    nbs::bspline5(uz, tz, dz);
+    nbs::bspline5<float>(ux, tx, dx);
+    nbs::bspline5<float>(uy, ty, dy);
+    nbs::bspline5<float>(uz, tz, dz);
     const float* grid = phi + static_cast<long long>(subset[s]) * nx * ny * nz;
     float gx_sum = 0.0f, gy_sum = 0.0f, gz_sum = 0.0f;
     for (int a = 0; a < nbs::kPmeOrder; ++a) {

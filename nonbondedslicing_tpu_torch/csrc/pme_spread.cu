@@ -13,6 +13,13 @@
 // as the reference's realToFixedPoint, so the grid is bitwise repeatable
 // whatever the order of the adds; a second pass converts it to float.  Slot
 // order is cell order, so neighbouring threads hit neighbouring grid lines.
+//
+// Evaluations with energies take the double variant: fractional
+// coordinates, splines and weights in double from a double reciprocal box,
+// and a double grid.  A weakly coupled slice's reciprocal energy (a
+// solute's with the water around it) is a small cross term of two large
+// charge grids, which float spline weights would blur by about as much as
+// its dE/dlambda is allowed to err.
 
 #include <cuda_runtime.h>
 
@@ -20,86 +27,109 @@
 
 namespace {
 
-constexpr float kFixedScale = 4294967296.0f;          // 2^32
-constexpr double kFixedInv = 1.0 / 4294967296.0;
+constexpr double kFixedInv = 1.0 / 4294967296.0;       // 2^-32
 
+__device__ __forceinline__ long long to_fixed(float v) {
+    return __float2ll_rn(v * 4294967296.0f);
+}
+__device__ __forceinline__ long long to_fixed(double v) {
+    return __double2ll_rn(v * 4294967296.0);
+}
+
+template <typename Real>
 __global__ void spread_kernel(const float* __restrict__ pos,
                               const float* __restrict__ charge,
                               const int* __restrict__ subset,
-                              const float* __restrict__ recip_g,
+                              const Real* __restrict__ recip_g,
                               unsigned long long* __restrict__ acc,
                               int n_cells, int capacity, int nx, int ny,
                               int nz) {
     const int s = blockIdx.x * blockDim.x + threadIdx.x;
     if (s >= n_cells * capacity) return;
-    const float q = charge[s];
-    if (q == 0.0f) return;   // pad slots (and neutral atoms) add nothing
+    const Real q = charge[s];
+    if (q == Real(0)) return;   // pad slots (and neutral atoms) add nothing
     const int cell = s / capacity;
     const int k = s - cell * capacity;
-    const float x = pos[(cell * 3 + 0) * capacity + k];
-    const float y = pos[(cell * 3 + 1) * capacity + k];
-    const float z = pos[(cell * 3 + 2) * capacity + k];
-    float recip[9];
+    const Real x = pos[(cell * 3 + 0) * capacity + k];
+    const Real y = pos[(cell * 3 + 1) * capacity + k];
+    const Real z = pos[(cell * 3 + 2) * capacity + k];
+    Real recip[9];
 #pragma unroll
     for (int i = 0; i < 9; ++i) recip[i] = recip_g[i];
     int bx, by, bz;
-    float fx, fy, fz;
-    nbs::grid_base(x, y, z, recip, 0, nx, &bx, &fx);
-    nbs::grid_base(x, y, z, recip, 1, ny, &by, &fy);
-    nbs::grid_base(x, y, z, recip, 2, nz, &bz, &fz);
-    float tx[nbs::kPmeOrder], ty[nbs::kPmeOrder], tz[nbs::kPmeOrder];
-    nbs::bspline5(fx, tx, nullptr);
-    nbs::bspline5(fy, ty, nullptr);
-    nbs::bspline5(fz, tz, nullptr);
+    Real fx, fy, fz;
+    nbs::grid_base<Real>(x, y, z, recip, 0, nx, &bx, &fx);
+    nbs::grid_base<Real>(x, y, z, recip, 1, ny, &by, &fy);
+    nbs::grid_base<Real>(x, y, z, recip, 2, nz, &bz, &fz);
+    Real tx[nbs::kPmeOrder], ty[nbs::kPmeOrder], tz[nbs::kPmeOrder];
+    nbs::bspline5<Real>(fx, tx, nullptr);
+    nbs::bspline5<Real>(fy, ty, nullptr);
+    nbs::bspline5<Real>(fz, tz, nullptr);
     unsigned long long* grid =
         acc + static_cast<long long>(subset[s]) * nx * ny * nz;
     for (int a = 0; a < nbs::kPmeOrder; ++a) {
         const int gx = (bx + a) % nx;
-        const float qx = q * tx[a];
+        const Real qx = q * tx[a];
         for (int b = 0; b < nbs::kPmeOrder; ++b) {
             const int gy = (by + b) % ny;
-            const float qxy = qx * ty[b];
+            const Real qxy = qx * ty[b];
             unsigned long long* line = grid + (static_cast<long long>(gx) * ny + gy) * nz;
 #pragma unroll
             for (int c = 0; c < nbs::kPmeOrder; ++c) {
                 const int gz = (bz + c) % nz;
-                const long long v = __float2ll_rn(qxy * tz[c] * kFixedScale);
+                const long long v = to_fixed(qxy * tz[c]);
                 atomicAdd(line + gz, static_cast<unsigned long long>(v));
             }
         }
     }
 }
 
-__global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
-                                      float* __restrict__ grid, long long n) {
+template <typename Real>
+__global__ void fixed_to_real_kernel(const unsigned long long* __restrict__ acc,
+                                     Real* __restrict__ grid, long long n) {
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    grid[i] = static_cast<float>(static_cast<double>(
+    grid[i] = static_cast<Real>(static_cast<double>(
         static_cast<long long>(acc[i])) * kFixedInv);
 }
 
-}  // namespace
-
-// acc must be zeroed by the caller; grid receives the float charge grids
-// (nsub, nx, ny, nz).  Returns the cudaError_t of the launches.
-extern "C" int nbs_pme_spread(const void* pos, const void* charge,
-                              const void* subset, const void* recip,
-                              void* acc, void* grid, int n_cells,
-                              int capacity, int nsub, int nx, int ny, int nz,
-                              void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename Real>
+int spread(const void* pos, const void* charge, const void* subset,
+           const void* recip, void* acc, void* grid, int n_cells,
+           int capacity, int nsub, int nx, int ny, int nz,
+           cudaStream_t st) {
     const int n_slots = n_cells * capacity;
     const int threads = 128;
-    spread_kernel<<<(n_slots + threads - 1) / threads, threads, 0, st>>>(
+    spread_kernel<Real><<<(n_slots + threads - 1) / threads, threads, 0, st>>>(
         static_cast<const float*>(pos), static_cast<const float*>(charge),
-        static_cast<const int*>(subset), static_cast<const float*>(recip),
+        static_cast<const int*>(subset), static_cast<const Real*>(recip),
         static_cast<unsigned long long*>(acc), n_cells, capacity, nx, ny, nz);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long n_grid = static_cast<long long>(nsub) * nx * ny * nz;
     const int blocks = static_cast<int>((n_grid + 255) / 256);
-    fixed_to_float_kernel<<<blocks, 256, 0, st>>>(
-        static_cast<const unsigned long long*>(acc), static_cast<float*>(grid),
+    fixed_to_real_kernel<Real><<<blocks, 256, 0, st>>>(
+        static_cast<const unsigned long long*>(acc), static_cast<Real*>(grid),
         n_grid);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// acc must be zeroed by the caller; grid receives the charge grids
+// (nsub, nx, ny, nz), float with recip a float (3, 3), or double (splines
+// and weights in double too) with recip a double (3, 3) when
+// double_precision is nonzero.  Returns the cudaError_t of the launches.
+extern "C" int nbs_pme_spread(const void* pos, const void* charge,
+                              const void* subset, const void* recip,
+                              void* acc, void* grid, int n_cells,
+                              int capacity, int nsub, int nx, int ny, int nz,
+                              int double_precision, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (double_precision) {
+        return spread<double>(pos, charge, subset, recip, acc, grid, n_cells,
+                              capacity, nsub, nx, ny, nz, st);
+    }
+    return spread<float>(pos, charge, subset, recip, acc, grid, n_cells,
+                         capacity, nsub, nx, ny, nz, st);
 }

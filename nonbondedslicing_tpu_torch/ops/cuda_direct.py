@@ -1,16 +1,26 @@
-"""Direct-space pair kernel over the cell grid (CUDA) and its plain twin.
+"""Direct-space pair kernels over the cell grid (CUDA) and their plain twins.
 
-Port of ``nonbondedslicing_tpu/ops/pallas_direct.py::make_pallas_column_kernel``
-with the physics of ``_make_pair_block``: LJ (sigma/2 + sigma/2,
+Ports of two kernels of ``nonbondedslicing_tpu/ops/pallas_direct.py`` that
+share the physics of ``_make_pair_block``: LJ (sigma/2 + sigma/2,
 2 sqrt(eps) * 2 sqrt(eps)), Coulomb by reaction field or Ewald erfc (the
 Abramowitz-Stegun 7.1.26 polynomial, max abs error ~1.5e-7, as the
 reference's GPU kernels), the quintic switch, and lambda per pair from the
 subsets of the two atoms.
 
+* ``pair_column`` (``csrc/pair_column.cu``) ports
+  ``make_pallas_column_kernel``: positions in the image of the cell
+  assignment, each neighbour cell shifted by its periodic image, pad slots
+  moved far away (``ops/fused.py`` padfix).
+* ``pair_cell`` (``csrc/pair_cell.cu``) ports ``make_pallas_cell_kernel`` as
+  the fused engine builds it for general exclusions under PME: raw
+  positions with minimum image per pair, a real-slot mask (atom index <
+  ``n_real``), and the Ewald exclusion corrections of every excluded pair
+  in the 27-cell neighbourhood fused in (unwrapped deltas unless
+  ``cfg.exceptions_periodic``).
+
 Slot layout (n_cells = ncx*ncy*ncz cells in x-major order, C slots each):
 
-* ``slot_pos`` (n_cells, 3, C) float: positions in the image of the cell
-  assignment, pad slots moved far away (``ops/fused.py`` padfix);
+* ``slot_pos`` (n_cells, 3, C) float: positions;
 * ``slot_par`` (n_cells, 3, C) float: charge, sigma/2, 2*sqrt(epsilon);
 * ``slot_sub``, ``slot_ids`` (n_cells, C) int32: subset and atom index;
 * ``slot_excl`` (n_cells, emax, C) int32: excluded partners, -1 padded.
@@ -21,8 +31,8 @@ over (home subset a, partner subset b) with weight 1/2 (every pair is
 visited from both sides).  Slice energies are then m[a, a] on the diagonal
 and m[a, b] + m[b, a] off it.
 
-``pair_column`` launches ``csrc/pair_column.cu`` for CUDA tensors and runs
-``pair_column_plain`` only for CPU tensors.
+The wrappers launch the kernels for CUDA tensors and run the plain twins
+only for CPU tensors.
 """
 
 import math
@@ -35,14 +45,15 @@ from ..utils.constants import ONE_4PI_EPS0, SQRT_PI
 
 MODE_REACTION_FIELD = 0
 MODE_EWALD = 1
-# limits of the CUDA kernel (csrc/pair_column.cu: register accumulators and
-# one thread per slot)
+# limits of the CUDA kernels (csrc/pair_common.cuh: register accumulators
+# and one thread per slot)
 MAX_SUBSETS = 8
 MAX_EXCLUSIONS = 16
 MAX_CAPACITY = 1024
 
-# launches of the CUDA kernel by variant (force-only, energies)
-LAUNCHES = {"pair_column": 0, "pair_column_energies": 0}
+# launches of the CUDA kernels by variant (force-only, energies)
+LAUNCHES = {"pair_column": 0, "pair_column_energies": 0,
+            "pair_cell": 0, "pair_cell_energies": 0}
 
 
 @dataclass(frozen=True)
@@ -58,6 +69,7 @@ class PairConfig:
     ewald_alpha: float = 0.0
     use_switch: bool = False
     switch_distance: float = 0.0
+    exceptions_periodic: bool = False
 
     @property
     def n_cells(self):
@@ -74,13 +86,31 @@ def _erfc_gauss_hastings(x):
 
 
 def _neighbor_offsets():
-    """The 27 neighbour-cell offsets in the kernel's order (self is 13)."""
+    """The 27 neighbour-cell offsets in the kernels' order (self is 13)."""
     return [(o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1) for o in range(27)]
 
 
-def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                      lam_c_nn, lam_v_nn, box, cfg, energies):
-    """Plain torch twin of the CUDA kernel, in the slot tensors' dtype."""
+def _min_image(dx, dy, dz, box):
+    """Reduced triclinic minimum image, z then y then x
+    (pallas_direct.py:98-111), each operation rounded as the kernel
+    rounds it."""
+    nz = torch.floor(dz / box[2, 2] + 0.5)
+    dx = dx - nz * box[2, 0]
+    dy = dy - nz * box[2, 1]
+    dz = dz - nz * box[2, 2]
+    ny = torch.floor(dy / box[1, 1] + 0.5)
+    dx = dx - ny * box[1, 0]
+    dy = dy - ny * box[1, 1]
+    nx = torch.floor(dx / box[0, 0] + 0.5)
+    dx = dx - nx * box[0, 0]
+    return dx, dy, dz
+
+
+def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
+                lam_v_nn, box, cfg, energies, n_real):
+    """Both kernels' plain twin, in the slot tensors' dtype: the column
+    kernel's when ``n_real`` is None, else the cell kernel's."""
+    cell_kernel = n_real is not None
     ncx, ncy, ncz = cfg.counts
     C = cfg.capacity
     nsub = cfg.nsub
@@ -101,36 +131,47 @@ def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
     oh_i = torch.nn.functional.one_hot(slot_sub.long(), nsub).to(dtype)
     eye = torch.eye(C, dtype=torch.bool, device=dev)
     coords = [torch.arange(n, device=dev) for n in (ncx, ncy, ncz)]
+    zero = torch.zeros((), dtype=dtype, device=dev)
     forces = torch.zeros_like(slot_pos)
     moments = (torch.zeros((g, 2, nsub, nsub), dtype=dtype, device=dev)
                if energies else None)
     # compared in the slot dtype: the kernel gets the same value rounded
     # once to float, so pairs at the cutoff fall on the same side
     cutoff2 = cfg.cutoff * cfg.cutoff
+    fuse_corrections = cell_kernel and cfg.mode == MODE_EWALD
     for d in _neighbor_offsets():
         # cell c receives cell (c + d) mod nc, whose true image sits at
         # floor((c + d) / nc) box vectors
-        shift = torch.zeros((ncx, ncy, ncz, 3), dtype=dtype, device=dev)
-        for axis in range(3):
-            w = torch.div(coords[axis] + d[axis], cfg.counts[axis],
-                          rounding_mode="floor").to(dtype)
-            view = [1, 1, 1, 1]
-            view[axis] = -1
-            shift = shift + w.reshape(view) * box[axis].reshape(1, 1, 1, 3)
         roll = dict(shifts=(-d[0], -d[1], -d[2]), dims=(0, 1, 2))
-        cand = (torch.roll(grid_pos, **roll) + shift[..., None]).reshape(g, 3, C)
+        cand = torch.roll(grid_pos, **roll)
+        if not cell_kernel:
+            shift = torch.zeros((ncx, ncy, ncz, 3), dtype=dtype, device=dev)
+            for axis in range(3):
+                w = torch.div(coords[axis] + d[axis], cfg.counts[axis],
+                              rounding_mode="floor").to(dtype)
+                view = [1, 1, 1, 1]
+                view[axis] = -1
+                shift = shift + w.reshape(view) * box[axis].reshape(1, 1, 1, 3)
+            cand = cand + shift[..., None]
+        cand = cand.reshape(g, 3, C)
         cpar = torch.roll(grid_par, **roll).reshape(g, 3, C)
         csub = torch.roll(grid_sub, **roll).reshape(g, C)
         cids = torch.roll(grid_ids, **roll).reshape(g, C)
 
-        delta = xi - cand[:, :, None, :]                # (g, 3, C, C)
-        # ((dx*dx + dy*dy) + dz*dz), each op rounded: the kernel's order
-        dx, dy, dz = delta[:, 0], delta[:, 1], delta[:, 2]
+        delta0 = xi - cand[:, :, None, :]               # (g, 3, C, C)
+        dx, dy, dz = delta0[:, 0], delta0[:, 1], delta0[:, 2]
+        if cell_kernel:
+            dx, dy, dz = _min_image(dx, dy, dz, box)
+        # ((dx*dx + dy*dy) + dz*dz), each op rounded: the kernels' order
         r2 = dx * dx + dy * dy + dz * dz                # (g, C, C)
         mask = r2 < cutoff2
         if d == (0, 0, 0):
             mask = mask & ~eye
         excluded = torch.any(excl == cids[:, None, None, :], dim=1)
+        if cell_kernel:
+            real = (slot_ids[:, :, None] < n_real) & (cids[:, None, :] < n_real)
+            xmask = real & excluded
+            mask = mask & real
         mask = mask & ~excluded
 
         r2s = torch.where(mask, r2, torch.ones((), dtype=dtype, device=dev))
@@ -163,17 +204,55 @@ def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
             dedr_vdw = dedr_vdw - e_vdw * sw_der * rinv
             e_vdw = e_vdw * sw_val
         sj = csub[:, None, :]
-        factor = (lam_v_nn[si, sj] * dedr_vdw + lam_c_nn[si, sj] * dedr_coul)
-        factor = torch.where(mask, factor, torch.zeros((), dtype=dtype,
-                                                       device=dev))
-        forces = forces + torch.sum(factor[:, None] * delta, dim=-1)
+        lam_cp = lam_c_nn[si, sj]
+        factor = torch.where(mask, lam_v_nn[si, sj] * dedr_vdw
+                             + lam_cp * dedr_coul, zero)
+        fx, fy, fz = factor * dx, factor * dy, factor * dz
+        e_coul = torch.where(mask, e_coul, zero)
+        if fuse_corrections:
+            # Ewald exclusion corrections (pallas_direct.py:229-289)
+            if cfg.exceptions_periodic:
+                ux, uy, uz = dx, dy, dz
+            else:
+                ux, uy, uz = delta0[:, 0], delta0[:, 1], delta0[:, 2]
+            r2x = torch.where(xmask, ux * ux + uy * uy + uz * uz,
+                              torch.ones((), dtype=dtype, device=dev))
+            rinvx = torch.rsqrt(r2x)
+            arx = cfg.ewald_alpha * (r2x * rinvx)
+            erfc_x, gauss_x = _erfc_gauss_hastings(arx)
+            erf_x = 1.0 - erfc_x
+            big = erf_x > 1e-6
+            dedr_x = torch.where(big, qq * rinvx * rinvx * rinvx * (
+                erf_x - (2.0 / SQRT_PI) * arx * gauss_x), zero)
+            factor_x = torch.where(xmask, -lam_cp * dedr_x, zero)
+            fx = fx + factor_x * ux
+            fy = fy + factor_x * uy
+            fz = fz + factor_x * uz
+            e_x = torch.where(big, -qq * rinvx * erf_x,
+                              -cfg.ewald_alpha * (2.0 / SQRT_PI) * qq)
+            e_coul = e_coul + torch.where(xmask, e_x, zero)
+        forces = forces + torch.stack([fx.sum(-1), fy.sum(-1), fz.sum(-1)],
+                                      dim=1)
         if energies:
             oh_j = torch.nn.functional.one_hot(csub, nsub).to(dtype)
-            zero = torch.zeros((), dtype=dtype, device=dev)
-            for term, e in enumerate((e_coul, e_vdw)):
-                e = 0.5 * torch.where(mask, e, zero)
-                moments[:, term] += oh_i.transpose(1, 2) @ e @ oh_j
+            for term, e in enumerate((e_coul,
+                                      torch.where(mask, e_vdw, zero))):
+                moments[:, term] += oh_i.transpose(1, 2) @ (0.5 * e) @ oh_j
     return forces, moments
+
+
+def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
+                      lam_c_nn, lam_v_nn, box, cfg, energies):
+    """Plain torch twin of ``csrc/pair_column.cu``."""
+    return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
+                       lam_c_nn, lam_v_nn, box, cfg, energies, None)
+
+
+def pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
+                    lam_c_nn, lam_v_nn, box, cfg, energies, n_real):
+    """Plain torch twin of ``csrc/pair_cell.cu``."""
+    return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
+                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real)
 
 
 def _check(name, t, shape, dtype, device):
@@ -188,22 +267,16 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-                lam_v_nn, box, cfg, energies):
-    """Pair forces (n_cells, 3, C) and moments (n_cells, 2, nsub, nsub) or
-    None.  CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
+            lam_c_nn, lam_v_nn, box, cfg, energies, extra_ints):
+    """Check the slot tensors, allocate the outputs and launch ``entry``."""
     dev = slot_pos.device
-    if dev.type == "cpu":
-        return pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids,
-                                 slot_excl, lam_c_nn, lam_v_nn, box, cfg,
-                                 energies)
     if dev.type != "cuda":
-        raise ValueError(f"pair_column: unsupported device {dev}")
+        raise ValueError(f"{entry}: unsupported device {dev}")
     g, C, nsub = cfg.n_cells, cfg.capacity, cfg.nsub
     if nsub > MAX_SUBSETS or cfg.emax > MAX_EXCLUSIONS or C > MAX_CAPACITY:
         raise ValueError(
-            f"pair_column: the CUDA kernel takes at most {MAX_SUBSETS} "
+            f"{entry}: the CUDA kernel takes at most {MAX_SUBSETS} "
             f"subsets, {MAX_EXCLUSIONS} exclusions per atom and "
             f"{MAX_CAPACITY} slots per cell (got {nsub}, {cfg.emax}, {C})")
     f32, i32 = torch.float32, torch.int32
@@ -220,14 +293,47 @@ def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
                if energies else None)
     ncx, ncy, ncz = cfg.counts
     LIBRARY.call(
-        "nbs_pair_column", slot_pos.data_ptr(), slot_par.data_ptr(),
+        entry, slot_pos.data_ptr(), slot_par.data_ptr(),
         slot_sub.data_ptr(), slot_ids.data_ptr(), slot_excl.data_ptr(),
         lam_c_nn.data_ptr(), lam_v_nn.data_ptr(), box.data_ptr(),
         forces.data_ptr(), None if moments is None else moments.data_ptr(),
         ncx, ncy, ncz, C, nsub, cfg.emax, cfg.mode, int(cfg.use_switch),
+        *extra_ints,
         cfg.cutoff, cfg.cutoff * cfg.cutoff, cfg.switch_distance, cfg.krf,
         cfg.crf, cfg.ewald_alpha,
         math.sqrt(ONE_4PI_EPS0), int(bool(energies)),
         torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pair_column_energies" if energies else "pair_column"] += 1
     return forces, moments
+
+
+def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
+                lam_v_nn, box, cfg, energies):
+    """Pair forces (n_cells, 3, C) and moments (n_cells, 2, nsub, nsub) or
+    None.  CPU tensors take the plain twin; CUDA tensors launch the
+    kernel."""
+    if slot_pos.device.type == "cpu":
+        return pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids,
+                                 slot_excl, lam_c_nn, lam_v_nn, box, cfg,
+                                 energies)
+    out = _launch("nbs_pair_column", slot_pos, slot_par, slot_sub, slot_ids,
+                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, ())
+    LAUNCHES["pair_column_energies" if energies else "pair_column"] += 1
+    return out
+
+
+def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
+              lam_v_nn, box, cfg, energies, n_real):
+    """Minimum-image pair forces with the Ewald exclusion corrections fused
+    in: (n_cells, 3, C) and moments (n_cells, 2, nsub, nsub) or None.
+    ``slot_pos`` holds raw positions; slots whose atom index is ``n_real``
+    or more are pads.  CPU tensors take the plain twin; CUDA tensors launch
+    the kernel."""
+    if slot_pos.device.type == "cpu":
+        return pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids,
+                               slot_excl, lam_c_nn, lam_v_nn, box, cfg,
+                               energies, n_real)
+    out = _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
+                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies,
+                  (int(n_real), int(cfg.exceptions_periodic)))
+    LAUNCHES["pair_cell_energies" if energies else "pair_cell"] += 1
+    return out

@@ -13,6 +13,13 @@ fractional coordinate, as in the JAX package.
 Slot tensors: ``slot_pos`` (n_cells, 3, C) float, ``slot_q`` (n_cells, C)
 float (0 on pad slots), ``slot_sub`` (n_cells, C) int32.  The wrappers launch
 the kernels for CUDA tensors and run the plain twins only for CPU tensors.
+
+Evaluations with energies spread the charges a second time, in double
+(``double=True``: splines and weights in float64, a float64 grid), and take
+the slice energies from its float64 spectra; their forces come from the
+float grid, as on every other step.  A weakly coupled slice's reciprocal
+energy is a small cross term of two large grids, which float spline
+weights blur by about as much as its dE/dlambda may err.
 """
 
 import numpy as np
@@ -26,7 +33,7 @@ from .pme import bsplines, pme_slice_energies_ri, rfft_energy_weights
 PME_ORDER = 5
 
 # launches of the CUDA kernels
-LAUNCHES = {"pme_spread": 0, "pme_interp": 0}
+LAUNCHES = {"pme_spread": 0, "pme_spread_energies": 0, "pme_interp": 0}
 
 
 def _splines(slot_pos, recip, grid_shape, derivatives):
@@ -52,8 +59,13 @@ def _stencil_index(base, grid_shape, sub):
              + iy[:, None, :, None]) * nz + iz[:, None, None, :])
 
 
-def pme_spread_plain(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub):
-    """Plain torch twin of the spread kernel: (nsub, nx, ny, nz) grids."""
+def pme_spread_plain(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
+                     double=False):
+    """Plain torch twin of the spread kernel: (nsub, nx, ny, nz) grids, in
+    float64 with ``double``."""
+    if double:
+        slot_pos, slot_q = slot_pos.double(), slot_q.double()
+        recip = recip.double()
     base, th, _ = _splines(slot_pos, recip, grid_shape, False)
     q = slot_q.reshape(-1)
     vals = (q[:, None, None, None] * th[:, 0, :, None, None]
@@ -88,33 +100,37 @@ def pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip):
     return f.reshape(g, C, 3).transpose(1, 2).contiguous()
 
 
-def _check_slots(slot_pos, slot_q, slot_sub, recip, dev):
+def _check_slots(slot_pos, slot_q, slot_sub, dev):
     g, _, C = slot_pos.shape
     _check("slot_pos", slot_pos, (g, 3, C), torch.float32, dev)
     _check("slot_q", slot_q, (g, C), torch.float32, dev)
     _check("slot_sub", slot_sub, (g, C), torch.int32, dev)
-    _check("recip", recip, (3, 3), torch.float32, dev)
     return g, C
 
 
-def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub):
-    """Charge grids (nsub, nx, ny, nz).  CPU tensors take the plain twin;
-    CUDA tensors launch the kernel (deterministic fixed-point adds)."""
+def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
+               double=False):
+    """Charge grids (nsub, nx, ny, nz): float32, or with ``double`` float64
+    from a float64 ``recip``, splines and weights in double.  CPU tensors
+    take the plain twin; CUDA tensors launch the kernel (deterministic
+    fixed-point adds)."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_spread_plain(slot_pos, slot_q, slot_sub, recip,
-                                grid_shape, nsub)
+                                grid_shape, nsub, double)
     if dev.type != "cuda":
         raise ValueError(f"pme_spread: unsupported device {dev}")
-    g, C = _check_slots(slot_pos, slot_q, slot_sub, recip, dev)
+    g, C = _check_slots(slot_pos, slot_q, slot_sub, dev)
+    real = torch.float64 if double else torch.float32
+    _check("recip", recip, (3, 3), real, dev)
     nx, ny, nz = grid_shape
     acc = torch.zeros((nsub, nx, ny, nz), dtype=torch.int64, device=dev)
-    grid = torch.empty((nsub, nx, ny, nz), dtype=torch.float32, device=dev)
+    grid = torch.empty((nsub, nx, ny, nz), dtype=real, device=dev)
     LIBRARY.call("nbs_pme_spread", slot_pos.data_ptr(), slot_q.data_ptr(),
                  slot_sub.data_ptr(), recip.data_ptr(), acc.data_ptr(),
-                 grid.data_ptr(), g, C, nsub, nx, ny, nz,
+                 grid.data_ptr(), g, C, nsub, nx, ny, nz, int(bool(double)),
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_spread"] += 1
+    LAUNCHES["pme_spread_energies" if double else "pme_spread"] += 1
     return grid
 
 
@@ -126,7 +142,8 @@ def pme_interp(phi, slot_pos, slot_q, slot_sub, recip):
         return pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip)
     if dev.type != "cuda":
         raise ValueError(f"pme_interp: unsupported device {dev}")
-    g, C = _check_slots(slot_pos, slot_q, slot_sub, recip, dev)
+    g, C = _check_slots(slot_pos, slot_q, slot_sub, dev)
+    _check("recip", recip, (3, 3), torch.float32, dev)
     _check("phi", phi, phi.shape, torch.float32, dev)
     if phi.dim() != 4:
         raise ValueError(f"phi must be (nsub, nx, ny, nz), got {phi.shape}")
@@ -156,9 +173,14 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
     spec = torch.fft.rfftn(grid, dim=(1, 2, 3))
     n_slices = np.asarray(slice_subset_pairs).shape[0]
     if energies:
+        grid64 = pme_spread(slot_pos, slot_q, slot_sub,
+                            recip_box_vectors(box.to(torch.float64)),
+                            grid_shape, nsub, double=True)
+        spec64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
         w = torch.as_tensor(rfft_energy_weights(grid_shape[2]),
-                            dtype=eterm.dtype, device=dev)
-        slice_e = pme_slice_energies_ri(spec.real, spec.imag, eterm * w,
+                            dtype=torch.float64, device=dev)
+        slice_e = pme_slice_energies_ri(spec64.real, spec64.imag,
+                                        eterm.to(torch.float64) * w,
                                         slice_subset_pairs)
     else:
         slice_e = torch.zeros(n_slices, dtype=torch.float64, device=dev)

@@ -34,8 +34,9 @@ def data_from_numpy(data_np, *, device, dtype):
     return out
 
 
-def plan_data(plan: Plan, *, device="cpu", dtype=torch.float64):
-    """The mutable-parameter tensors of a plan."""
+def plan_data(plan: Plan, *, device="cuda", dtype=torch.float64):
+    """The mutable-parameter tensors of a plan, on the card unless the
+    caller names another device (the MD step runs where ``data`` lies)."""
     return data_from_numpy({k: getattr(plan, k) for k in DATA_KEYS},
                            device=device, dtype=dtype)
 

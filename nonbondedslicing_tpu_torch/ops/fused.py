@@ -6,13 +6,21 @@ charge, sigma/2, 2*sqrt(eps), subset and atom index, the slot exclusion
 table, the far-away pad offsets and the rebuild positions.  MD callers
 reuse it for K steps under a skin guard.
 
-``apply`` does the per-step work: one gather of positions into slot order
-(kept in the prepare-time image), the pair kernel (``ops/cuda_direct.py``),
-sliced PME through the spread and interpolation kernels
-(``ops/cuda_pme.py``), self/plasma energies, the water-triangle exclusion
-corrections, 1-4 exceptions, the dispersion correction and one slot->atom
-force unsort.  It also returns ``aux``: the cell-capacity overflow count and
-the squared max displacement since ``prepare``.
+``apply`` does the per-step work: one gather of positions into slot order,
+the pair kernel (``ops/cuda_direct.py``), sliced PME through the spread and
+interpolation kernels (``ops/cuda_pme.py``), self/plasma energies, the
+water-triangle exclusion corrections, 1-4 exceptions, the dispersion
+correction and one slot->atom force unsort.  It also returns ``aux``: the
+cell-capacity overflow count and the squared max displacement since
+``prepare``.
+
+The pair kernel is chosen as the JAX package's fused engine chooses it
+(its ``ops/fused.py:189-241``).  Under PME, when the exclusions are not
+rigid-water triangles or the exceptions are periodic, the min-image cell
+kernel (``pair_cell``) takes raw positions and fuses the Ewald exclusion
+corrections in.  Otherwise the column kernel (``pair_column``) takes
+positions kept in the prepare-time image, with periodic shifts per
+neighbour cell, and the water-triangle corrections run as rows.
 
 Validity conditions (enforced by callers via aux + static checks):
 * aux["overflow"] == 0
@@ -21,9 +29,8 @@ Validity conditions (enforced by callers via aux + static checks):
 * runtime box == plan.box0: the cell grid and the PME convolution kernel
   are built once from it
 
-Supported: CutoffPeriodic, and PME with exclusions that are rigid-water
-triangles (the column path of the JAX package's fused engine).  Ewald,
-LJPME and other exclusion layouts under PME raise NotImplementedError.
+Supported: CutoffPeriodic and PME.  Ewald and LJPME raise
+NotImplementedError.
 """
 
 import numpy as np
@@ -114,12 +121,11 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     if cfg is None:
         return None
     is_pme = method == NonbondedForce.PME
-    if is_pme and (plan.exceptions_periodic or bonded.triangle_exclusions(
-            plan.exclusion_pairs, plan.num_particles) is None):
-        raise NotImplementedError(
-            "fused engine: under PME only rigid-water exclusion triangles "
-            "with non-periodic exceptions are ported; other exclusions need "
-            "the min-image cell kernel (ROADMAP B4)")
+    # the min-image cell kernel with fused exclusion corrections
+    use_cell = is_pme and (plan.exceptions_periodic
+                           or bonded.triangle_exclusions(
+                               plan.exclusion_pairs,
+                               plan.num_particles) is None)
     counts = cfg["counts"]
     capacity = cfg["capacity"]
     n_cells = counts[0] * counts[1] * counts[2]
@@ -138,7 +144,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         krf=plan.cutoff ** -3 * (eps_rf - 1.0) / (2.0 * eps_rf + 1.0),
         crf=(1.0 / plan.cutoff) * (3.0 * eps_rf) / (2.0 * eps_rf + 1.0),
         ewald_alpha=plan.ewald_alpha, use_switch=bool(plan.use_switch),
-        switch_distance=plan.switch_distance)
+        switch_distance=plan.switch_distance,
+        exceptions_periodic=bool(plan.exceptions_periodic))
     cfg["pair"] = pair_cfg
     disp_correction = method in (NonbondedForce.CutoffPeriodic,
                                  NonbondedForce.PME)
@@ -176,10 +183,15 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         cell = neighbors.cell_ids(positions, box, counts)
         table, overflow = neighbors.build_occupancy(cell, n, counts, capacity)
         slots = table.reshape(-1).long()
-        # canonical in-box wrap consistent with the cell assignment; apply()
-        # keeps drifted atoms in THIS image for the whole reuse window
-        frac0 = positions @ recip_box_vectors(box)
-        pos0w = positions - torch.floor(frac0) @ box
+        if use_cell:
+            # minimum image in the kernel: positions stay as given
+            pos0w = positions
+        else:
+            # canonical in-box wrap consistent with the cell assignment;
+            # apply() keeps drifted atoms in THIS image for the whole reuse
+            # window
+            frac0 = positions @ recip_box_vectors(box)
+            pos0w = positions - torch.floor(frac0) @ box
 
         par = torch.stack([charge, sig_half, eps2], dim=1)
         par_p = torch.cat([par, par.new_zeros((1, 3))])
@@ -196,7 +208,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         inv_slots = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         inv_slots[slots] = torch.arange(slots.shape[0], device=dev)
         # unique far-away x offsets for pad slots: every pad sits > cutoff
-        # from every other slot, so the pair kernel needs no pad mask
+        # from every other slot, so the column kernel needs no pad mask (the
+        # cell kernel masks pads by atom index)
         padfix = torch.where(
             slots == n,
             pad_base + 64.0 * torch.arange(slots.shape[0], device=dev,
@@ -211,7 +224,7 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 (n_cells, 2, capacity))], dim=1),
             pos0=positions, pos0w=pos0w, charge=charge,
             overflow=overflow)
-        if is_pme:
+        if is_pme and not use_cell:
             sl_tab = _indices(dev)["sl_tab"]
             sub3 = subsets.reshape(n // 3, 3)
             state["pair_slices"] = torch.stack(
@@ -228,17 +241,25 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         lam_c_nn = lam_c[idx["sl_tab"]].contiguous()
         charge = state["charge"]
 
-        # keep each atom in its prepare-time image: wrapped prepare position
-        # + raw drift (re-wrapping would teleport an atom that crosses a box
-        # face away from its frozen cell and drop its pairs)
-        pos_in = state["pos0w"] + (positions - state["pos0"])
+        if use_cell:
+            pos_in = positions
+        else:
+            # keep each atom in its prepare-time image: wrapped prepare
+            # position + raw drift (re-wrapping would teleport an atom that
+            # crosses a box face away from its frozen cell and drop its
+            # pairs)
+            pos_in = state["pos0w"] + (positions - state["pos0"])
         pos_p = torch.cat([pos_in, pos_in.new_zeros((1, 3))])
         slot_pos = (pos_p[state["slots"]].reshape(n_cells, capacity, 3)
                     .transpose(1, 2) + state["padfix3"]).contiguous()
-        slot_f, moments = cuda_direct.pair_column(
-            slot_pos, state["slot_par"], state["slot_sub"], state["table"],
-            state["sexcl"], lam_c_nn, lam_v[idx["sl_tab"]].contiguous(), box,
-            pair_cfg, energies)
+        pair_args = (slot_pos, state["slot_par"], state["slot_sub"],
+                     state["table"], state["sexcl"], lam_c_nn,
+                     lam_v[idx["sl_tab"]].contiguous(), box, pair_cfg,
+                     energies)
+        if use_cell:
+            slot_f, moments = cuda_direct.pair_cell(*pair_args, n)
+        else:
+            slot_f, moments = cuda_direct.pair_column(*pair_args)
 
         slice_e = None
         if energies:
@@ -285,7 +306,7 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         # single slot->atom unsort: gather by the inverse permutation
         forces = slot_f.transpose(1, 2).reshape(-1, 3)[state["inv_slots"]]
 
-        if is_pme:
+        if is_pme and not use_cell:
             e_x, f_x = bonded.exclusion_corrections_rows(
                 positions, charge, state["pair_slices"], lam_c,
                 alpha=plan.ewald_alpha, num_slices=nslices)

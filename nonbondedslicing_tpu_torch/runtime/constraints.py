@@ -1,18 +1,27 @@
-"""Holonomic distance constraints for rigid 3-site water.
+"""Holonomic distance constraints.
 
-Positions are projected with closed-form SETTLE (Miyamoto & Kollman,
-J. Comput. Chem. 13:952, 1992) and velocities with the one-shot 3x3 RATTLE
-solve, both in molecule-major dense layout over contiguous atom triples
-(molecule m = atoms 3m, 3m+1, 3m+2): no gathers or scatters.  The reference
-plugin takes SETTLE from OpenMM core for rigid waters.
+Two solvers, chosen by ``make_constrainer`` as the JAX package chooses them
+(its ``runtime/constraints.py:139-177``):
 
-Other solvers of the JAX package (iterative M-SHAKE triangles, general
-clusters) are not ported yet (ROADMAP A11); ``make_constrainer`` raises for
-the layouts that need them.
+* SETTLE for isoceles rigid triangles on contiguous atom triples that cover
+  every particle (the rigid-water box): closed-form positions (Miyamoto &
+  Kollman, J. Comput. Chem. 13:952, 1992) and the one-shot 3x3 RATTLE
+  velocity solve, in molecule-major dense layout with no gathers or
+  scatters.  The reference plugin takes SETTLE from OpenMM core.
+* Iterative M-SHAKE / RATTLE over gathered clusters of coupled constraints
+  for every other layout (waters beside a solute, chains, wider clusters):
+  a closed-form 3x3 solve for clusters of width 3, a pseudo-inverse for
+  wider ones, padded rows masked out.
+
+The dense M-SHAKE triangle solver (contiguous triangles that are not
+isoceles) is not ported yet (ROADMAP A11) and raises.
 """
 
 import numpy as np
 import torch
+
+# M-SHAKE sweeps of the gather solver (the JAX package's default)
+MSHAKE_ITERATIONS = 8
 
 
 def _contiguous_triangles(pairs, n_particles):
@@ -235,21 +244,133 @@ class SettleConstrainer:
         return torch.stack([va, vb, vc], dim=1).reshape(-1, 3)
 
 
+class GatherConstrainer:
+    """M-SHAKE positions and RATTLE velocities over clusters of coupled
+    distance constraints, gathered from and scattered to the atom array
+    (``_make_gather_constrainer``, JAX ``runtime/constraints.py:430-535``).
+
+    ``pairs`` (M, C, 2) atom pairs, ``dists`` (M, C) target distances,
+    ``mask`` (M, C) with 0 on the inert padded rows of clusters narrower
+    than C (or None).  Constants are float64 host arrays, moved to the
+    positions' device and dtype on first use.
+    """
+
+    def __init__(self, pairs, dists, masses, mask=None):
+        m, width = pairs.shape[0], pairs.shape[1]
+        self.width = width
+        i_idx = pairs[..., 0].astype(np.int64)
+        j_idx = pairs[..., 1].astype(np.int64)
+        masses = np.asarray(masses, dtype=np.float64)
+        inv_mass = np.where(masses > 0, 1.0 / np.maximum(masses, 1e-300), 0.0)
+        # coupling S[k, l] of constraints k and l through shared atoms
+        s = np.zeros((m, width, width))
+        for k in range(width):
+            for l in range(width):
+                ik, jk = i_idx[:, k], j_idx[:, k]
+                il, jl = i_idx[:, l], j_idx[:, l]
+                s[:, k, l] = (inv_mass[ik] * (ik == il)
+                              - inv_mass[ik] * (ik == jl)
+                              - inv_mass[jk] * (jk == il)
+                              + inv_mass[jk] * (jk == jl))
+        host = dict(d2=np.asarray(dists, dtype=np.float64).reshape(m, width)
+                    ** 2, im_i=inv_mass[i_idx], im_j=inv_mass[j_idx], s=s)
+        self._masked = mask is not None
+        if self._masked:
+            # padded rows: unit diagonal + zero rhs -> lambda = 0, and zero
+            # coupling so they never perturb the real constraints; their
+            # inverse masses are zeroed so a round-off lambda moves nothing
+            mask = np.asarray(mask, dtype=np.float64).reshape(m, width)
+            host["mm"] = mask[:, :, None] * mask[:, None, :]
+            host["jfill"] = np.eye(width)[None] * (1.0 - mask[:, :, None])
+            host["row_mask"] = mask
+            host["im_i"] = host["im_i"] * mask
+            host["im_j"] = host["im_j"] * mask
+        self._host = host
+        self._index = dict(i=i_idx, j=j_idx,
+                           flat=np.concatenate([i_idx.reshape(-1),
+                                                j_idx.reshape(-1)]))
+        self._cache = {}
+
+    def _consts(self, like):
+        key = (like.device, like.dtype)
+        if key not in self._cache:
+            c = {k: torch.as_tensor(v, device=like.device).to(like.dtype)
+                 for k, v in self._host.items()}
+            c.update({k: torch.as_tensor(v, device=like.device)
+                      for k, v in self._index.items()})
+            self._cache[key] = c
+        return self._cache[key]
+
+    def _solve(self, J, b):
+        if self.width == 3:
+            x = _solve3([[J[..., k, l:l + 1] for l in range(3)]
+                         for k in range(3)],
+                        [b[..., k:k + 1] for k in range(3)])
+            return torch.cat(x, dim=-1)
+        # minimum-norm least squares: wide clusters are often redundant
+        # (rigid CH4: 10 distance constraints on 9 internal DOF), making
+        # the Newton matrix singular but the system consistent
+        return torch.einsum("...kl,...l->...k", torch.linalg.pinv(J), b)
+
+    def _mask(self, c, J, rhs):
+        if not self._masked:
+            return J, rhs
+        return J * c["mm"] + c["jfill"], rhs * c["row_mask"]
+
+    def _scatter(self, c, x, lam, r_dir):
+        """x - invM * sum_k lam_k r_dir_k on both atoms of every pair."""
+        d_i = lam[..., None] * r_dir * c["im_i"][..., None]     # (M, C, 3)
+        d_j = -lam[..., None] * r_dir * c["im_j"][..., None]
+        delta = torch.cat([d_i.reshape(-1, 3), d_j.reshape(-1, 3)])
+        return x.index_add(0, c["flat"], -delta)
+
+    def project_positions(self, pos_ref, pos_new):
+        """Iteratively restore |r_ij| = d along the reference directions."""
+        c = self._consts(pos_new)
+        i, j = c["i"], c["j"]
+        r_ref = pos_ref[i] - pos_ref[j]                         # (M, C, 3)
+        pos = pos_new
+        for _ in range(MSHAKE_ITERATIONS):
+            r_now = pos[i] - pos[j]
+            sigma = torch.sum(r_now * r_now, dim=-1) - c["d2"]
+            dots = torch.einsum("mkx,mlx->mkl", r_now, r_ref)
+            J, rhs = self._mask(c, 4.0 * c["s"] * dots, sigma)
+            pos = self._scatter(c, pos, 2.0 * self._solve(J, rhs), r_ref)
+        return pos
+
+    def project_velocities(self, pos, vel):
+        """RATTLE: remove the velocity components along the constraints."""
+        c = self._consts(vel)
+        i, j = c["i"], c["j"]
+        r_now = pos[i] - pos[j]
+        v_rel = vel[i] - vel[j]
+        rhs = torch.sum(r_now * v_rel, dim=-1)
+        dots = torch.einsum("mkx,mlx->mkl", r_now, r_now)
+        J, rhs = self._mask(c, c["s"] * dots, rhs)
+        return self._scatter(c, vel, self._solve(J, rhs), r_now)
+
+
 def make_constrainer(pairs, dists, masses, n_particles, mask=None):
-    """(project_positions, project_velocities) for rigid-water constraints:
-    ``pairs`` (M, 3, 2) contiguous triangles with isoceles geometry and
-    equal hydrogen masses.  Other layouts raise NotImplementedError."""
+    """(project_positions, project_velocities) for clustered constraints
+    ``pairs`` (M, C, 2) with target ``dists`` (M, C) and padded-row
+    ``mask`` (M, C) or None.  SETTLE takes contiguous isoceles triangles
+    that cover every particle; every other layout takes the gather solver
+    (MSHAKE_ITERATIONS sweeps).  Contiguous triangles that are not
+    isoceles raise NotImplementedError (the dense M-SHAKE triangle
+    solver)."""
     pairs = np.asarray(pairs, dtype=np.int32)
     if pairs.ndim != 3:
         pairs = pairs.reshape(-1, 3, 2)
     if mask is not None and np.all(np.asarray(mask) == 1.0):
         mask = None
-    if (pairs.shape[1] != 3 or mask is not None
-            or not _contiguous_triangles(pairs, n_particles)
-            or not _isoceles_triangles(pairs, dists, masses)):
-        raise NotImplementedError(
-            "constraints: only SETTLE on contiguous isoceles water "
-            "triangles is ported; M-SHAKE triangles and general clusters "
-            "are not yet (ROADMAP A11)")
-    settle = SettleConstrainer(dists, masses)
-    return settle.project_positions, settle.project_velocities
+    if (pairs.shape[1] == 3 and mask is None
+            and _contiguous_triangles(pairs, n_particles)):
+        if not _isoceles_triangles(pairs, dists, masses):
+            raise NotImplementedError(
+                "constraints: the dense M-SHAKE solver for contiguous "
+                "triangles that are not isoceles is not ported yet "
+                "(ROADMAP A11)")
+        settle = SettleConstrainer(dists, masses)
+        return settle.project_positions, settle.project_velocities
+    solver = GatherConstrainer(pairs, dists, masses, mask=mask)
+    return solver.project_positions, solver.project_velocities

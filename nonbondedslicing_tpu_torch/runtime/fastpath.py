@@ -14,6 +14,9 @@ Safety is monitored on the device and checked on the host once per
   (skin/2)^2 the frozen cell assignment may miss pairs
 * the runtime box must equal ``plan.box0``: the cell grid sizing and the
   PME convolution kernel are built once from it
+
+Optionally adds harmonic bonds (flexible intramolecular geometry) to the
+forces of every step.
 """
 
 import numpy as np
@@ -28,16 +31,51 @@ from ..ops.params import slice_lambdas
 DEFAULT_SKIN = 0.09
 
 
+def _bond_forces_fn(bonds, n):
+    """forces(pos) (n, 3) of harmonic bonds ``bonds`` (M, 4) rows (i, j, r0,
+    k) with energy k/2 (r - r0)^2, or None without bonds.  Bond vectors are
+    taken as they are, without minimum image: a bonded pair never straddles
+    half the box."""
+    if bonds is None or len(bonds) == 0:
+        return None
+    bonds = np.asarray(bonds, dtype=np.float64)
+    host = dict(b_i=bonds[:, 0].astype(np.int64),
+                b_j=bonds[:, 1].astype(np.int64), r0=bonds[:, 2],
+                k=bonds[:, 3])
+    cache = {}
+
+    def bond_forces(pos):
+        key = (pos.device, pos.dtype)
+        if key not in cache:
+            cache[key] = {name: torch.as_tensor(v, device=pos.device).to(
+                pos.dtype if v.dtype.kind == "f" else torch.int64)
+                for name, v in host.items()}
+        c = cache[key]
+        dr = pos[c["b_i"]] - pos[c["b_j"]]
+        r = torch.sqrt(torch.sum(dr * dr, dim=-1))
+        dedr = c["k"] * (r - c["r0"]) / torch.clamp(r, min=1e-12)
+        f = -dedr[:, None] * dr
+        out = torch.zeros((n, 3), dtype=pos.dtype, device=pos.device)
+        return out.index_add(0, c["b_i"], f).index_add(0, c["b_j"], -f)
+
+    return bond_forces
+
+
 def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                  reuse_steps=None, constraints=None, target_skin=DEFAULT_SKIN,
                  mixed_precision=False, bonds=None):
     """Returns run(pos, vel, box, gvals, data, n_steps) -> (pos, vel, energy).
 
-    Leapfrog Verlet: v += dt*F/m; x += dt*v, with SETTLE/RATTLE when
-    ``constraints`` = (pairs, dists) describes rigid waters.  Positions,
-    velocities, box and gvals may be numpy arrays or tensors; the run works
-    on the device of ``data`` (``ops.engine.data_from_numpy``) in ``dtype``
-    and returns tensors there, ``energy`` as a float64 0-d tensor.
+    Leapfrog Verlet: v += dt*F/m; x += dt*v, with constraint projections
+    when ``constraints`` = (pairs, dists[, mask]) is given
+    (``runtime.constraints.make_constrainer``).  ``bonds`` is an optional
+    (M, 4) array-like of (i, j, r0, k) harmonic bonds added to the forces of
+    every step (no minimum image: bonded pairs never straddle half the
+    box).  Positions, velocities, box and gvals may be numpy arrays
+    or tensors; the run works on the device of ``data``
+    (``ops.engine.plan_data``) in ``dtype`` and returns tensors there,
+    ``energy`` as a float64 0-d tensor.  The energy is the nonbonded
+    energy, as in the JAX package.
 
     ``reuse_steps`` (K) sets how many steps share one slot rebuild; None
     picks K from the skin and the lightest mass.  Raises OpenMMException
@@ -47,9 +85,6 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     if mixed_precision:
         raise NotImplementedError(
             "make_md_step: mixed precision is not ported yet (ROADMAP A7)")
-    if bonds is not None and len(bonds):
-        raise NotImplementedError(
-            "make_md_step: harmonic bonds are not ported yet (ROADMAP A11)")
     eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
                                       target_skin=target_skin, energies=False)
     if eng is None:
@@ -64,6 +99,7 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     m_np = np.asarray(masses, dtype=np.float64)
     inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
     box0 = np.asarray(plan.box0, dtype=np.float64)
+    bond_forces = _bond_forces_fn(bonds, n)
     if constraints is not None:
         from .constraints import make_constrainer
         c_mask = constraints[2] if len(constraints) > 2 else None
@@ -116,6 +152,8 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
             state = prepare(pos, box, gvals, data)
             for _ in range(k):
                 _, forces, aux = apply(pos, box, gvals, data, state)
+                if bond_forces is not None:
+                    forces = forces + bond_forces(pos)
                 pos, vel = integrate(pos, vel, forces)
                 dmax = torch.maximum(dmax, aux["maxdisp2"])
             ov = torch.maximum(ov, state["overflow"])

@@ -1,0 +1,194 @@
+"""The systems that chip_smoke.py, profile_md.py and the port's tests drive,
+built through the port's force/System API (or any API of the same shape,
+such as the JAX package's, passed in as ``api``).
+
+* ``build_system``: the benchmark of bench.py:56-138 (rigid): 7,763 rigid
+  3-site waters (23,289 atoms) in a 6.16 nm box, 3 subsets, two lambda
+  scaling parameters, PME (cutoff 0.9 nm, Ewald tolerance 5e-4).
+* ``build_solute_system``: a flexible 12-site united-atom chain in a cavity
+  of a rigid-water box, decoupled by lambda_elec / lambda_vdw, with harmonic
+  bonds.
+"""
+
+import os
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+STATE_FILE = os.path.join(ROOT, "extras", "bench_state_rigid.npz")
+
+N_MOLECULES = 7763
+DT_PS = 0.002
+D_OH, D_HH = 0.09572, 0.15139
+KB = 8.31446261815324e-3          # kJ/mol/K
+WATER_MASSES = (15.999, 1.008, 1.008)
+# (charge, sigma nm, epsilon kJ/mol) of O, H, H
+WATER_PARAMS = ((-0.834, 0.3151, 0.6364), (0.417, 0.04, 0.192),
+                (0.417, 0.04, 0.192))
+
+# the solute: a 12-site united-atom chain (TraPPE CH2)
+SOLUTE_SITES = 12
+SOLUTE_MASS, SOLUTE_SIGMA, SOLUTE_EPSILON = 14.027, 0.395, 0.382
+SOLUTE_CHARGE = 0.25              # alternating +-, net 0
+BOND_R0, BOND_K = 0.154, 2.5e5    # nm, kJ/mol/nm^2 (1-2)
+ANGLE_R0, ANGLE_K = 0.258, 1.0e5  # 1-3 springs in place of angles
+CAVITY_NM = 0.40                  # waters this close to a site are removed
+SOLUTE_LAMBDAS = (0.5, 0.8)       # lambda_elec, lambda_vdw
+SOLUTE_SEED = 7                   # the chain's Maxwell-Boltzmann velocities
+
+
+def build_system(api):
+    """bench.py:56-138 (rigid) through ``api``, plus dE/dlambda requests for
+    both scaling parameters.  Returns (system, force, box length,
+    constraints (pairs, dists))."""
+    n_mol = N_MOLECULES
+    n_atoms = 3 * n_mol
+    box = float(np.cbrt(n_atoms / 100.2))
+    rng = np.random.default_rng(42)
+    force = api.SlicedNonbondedForce(3)
+    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setCutoffDistance(0.9)
+    force.setEwaldErrorTolerance(5e-4)
+    system = api.System()
+    system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
+    positions = np.zeros((n_atoms, 3))
+    c_pairs, c_dists = [], []
+    m = int(np.ceil(n_mol ** (1 / 3)))
+    spacing = box / m
+    for k in range(n_mol):
+        iz, r = divmod(k, m * m)
+        iy, ix = divmod(r, m)
+        center = (np.array([ix, iy, iz]) + 0.5) * spacing
+        for mass, (q, sig, eps) in zip(WATER_MASSES, WATER_PARAMS):
+            system.addParticle(mass)
+            force.addParticle(q, sig, eps)
+        o = 3 * k
+        center = center + rng.uniform(-0.06, 0.06, 3) * spacing
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        perp = np.cross(axis, rng.normal(size=3))
+        perp /= np.linalg.norm(perp)
+        half = D_HH / 2
+        h = np.sqrt(D_OH ** 2 - half ** 2)
+        positions[o] = center
+        positions[o + 1] = center + h * axis + half * perp
+        positions[o + 2] = center + h * axis - half * perp
+        force.addException(o, o + 1, 0, 1, 0)
+        force.addException(o, o + 2, 0, 1, 0)
+        force.addException(o + 1, o + 2, 0, 1, 0)
+        c_pairs.append([[o, o + 1], [o, o + 2], [o + 1, o + 2]])
+        c_dists.append([D_OH, D_OH, D_HH])
+    for k in range(n_mol):
+        subset = 0 if k < n_mol // 3 else (1 if k < 2 * n_mol // 3 else 2)
+        for a in range(3):
+            force.setParticleSubset(3 * k + a, subset)
+    force.addGlobalParameter("lambda01", 1.0)
+    force.addScalingParameter("lambda01", 0, 1, True, True)
+    force.addGlobalParameter("lambda12", 1.0)
+    force.addScalingParameter("lambda12", 1, 2, True, True)
+    force.addEnergyParameterDerivative("lambda01")
+    force.addEnergyParameterDerivative("lambda12")
+    system.addForce(force)
+    return system, force, box, (c_pairs, c_dists)
+
+
+def zigzag_chain(center):
+    """(SOLUTE_SITES, 3) planar zig-zag chain centred on ``center``: 1-2
+    distances BOND_R0, 1-3 distances ANGLE_R0, along x."""
+    half = 0.5 * ANGLE_R0
+    rise = np.sqrt(BOND_R0 ** 2 - half ** 2)
+    k = np.arange(SOLUTE_SITES)
+    chain = np.stack([(k - 0.5 * (SOLUTE_SITES - 1)) * half,
+                      np.where(k % 2, 0.5 * rise, -0.5 * rise),
+                      np.zeros(SOLUTE_SITES)], axis=1)
+    return chain + np.asarray(center, dtype=np.float64)
+
+
+def build_solute_system(api, water_positions, box_len):
+    """One flexible 12-site united-atom chain (TraPPE CH2 LJ, charges
+    +-0.25) at the box centre in a cavity of the rigid-water box
+    ``water_positions`` (3 sites per molecule, cubic box ``box_len``): every
+    water with an atom within CAVITY_NM of a chain site (minimum image) is
+    removed.  Chain atoms come first (subset 0), then the kept waters
+    (subset 1).  ``lambda_elec`` scales only the Coulomb part of slice
+    (0, 1), ``lambda_vdw`` only its LJ part; dE/dlambda is requested for
+    both.
+
+    Returns (system, force, positions, masses, constraints, bonds, kept):
+    ``constraints`` the water triangles (pairs, dists), ``bonds`` the (M, 4)
+    harmonic 1-2 and 1-3 bonds (i, j, r0, k), ``kept`` the indices of the
+    kept water atoms in ``water_positions``."""
+    chain = zigzag_chain(np.full(3, 0.5 * box_len))
+    waters = np.asarray(water_positions, dtype=np.float64).reshape(-1, 3, 3)
+    d = waters[:, :, None, :] - chain[None, None]
+    d -= box_len * np.round(d / box_len)
+    keep = np.linalg.norm(d, axis=-1).min(axis=(1, 2)) >= CAVITY_NM
+    kept = (3 * np.nonzero(keep)[0][:, None] + np.arange(3)).reshape(-1)
+    ns = SOLUTE_SITES
+    positions = np.concatenate([chain, waters[keep].reshape(-1, 3)])
+
+    force = api.SlicedNonbondedForce(2)
+    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setCutoffDistance(0.9)
+    force.setEwaldErrorTolerance(5e-4)
+    system = api.System()
+    system.setDefaultPeriodicBoxVectors((box_len, 0, 0), (0, box_len, 0),
+                                        (0, 0, box_len))
+    charges = SOLUTE_CHARGE * np.where(np.arange(ns) % 2, -1.0, 1.0)
+    for i in range(ns):
+        system.addParticle(SOLUTE_MASS)
+        force.addParticle(float(charges[i]), SOLUTE_SIGMA, SOLUTE_EPSILON)
+        force.setParticleSubset(i, 0)
+    bonds = []
+    for i in range(ns - 1):
+        force.addException(i, i + 1, 0.0, 1.0, 0.0)
+        bonds.append((i, i + 1, BOND_R0, BOND_K))
+    for i in range(ns - 2):
+        force.addException(i, i + 2, 0.0, 1.0, 0.0)
+        bonds.append((i, i + 2, ANGLE_R0, ANGLE_K))
+    for i in range(ns - 3):
+        force.addException(i, i + 3, float(charges[i] * charges[i + 3]) / 1.2,
+                           SOLUTE_SIGMA, 0.5 * SOLUTE_EPSILON)
+    c_pairs, c_dists = [], []
+    n_kept = int(keep.sum())
+    for k in range(n_kept):
+        o = ns + 3 * k
+        for a, (mass, (q, sig, eps)) in enumerate(zip(WATER_MASSES,
+                                                      WATER_PARAMS)):
+            system.addParticle(mass)
+            force.addParticle(q, sig, eps)
+            force.setParticleSubset(o + a, 1)
+        force.addException(o, o + 1, 0, 1, 0)
+        force.addException(o, o + 2, 0, 1, 0)
+        force.addException(o + 1, o + 2, 0, 1, 0)
+        c_pairs.append([[o, o + 1], [o, o + 2], [o + 1, o + 2]])
+        c_dists.append([D_OH, D_OH, D_HH])
+    force.addGlobalParameter("lambda_elec", SOLUTE_LAMBDAS[0])
+    force.addScalingParameter("lambda_elec", 0, 1, True, False)
+    force.addGlobalParameter("lambda_vdw", SOLUTE_LAMBDAS[1])
+    force.addScalingParameter("lambda_vdw", 0, 1, False, True)
+    force.addEnergyParameterDerivative("lambda_elec")
+    force.addEnergyParameterDerivative("lambda_vdw")
+    system.addForce(force)
+    masses = np.concatenate([np.full(ns, SOLUTE_MASS),
+                             np.tile(WATER_MASSES, n_kept)])
+    return (system, force, positions, masses, (c_pairs, c_dists),
+            np.asarray(bonds, dtype=np.float64), kept)
+
+
+def solute_velocities(water_velocities, kept):
+    """The solute box's velocities: the chain's Maxwell-Boltzmann at 300 K
+    from SOLUTE_SEED, then the kept waters' own."""
+    rng = np.random.default_rng(SOLUTE_SEED)
+    return np.concatenate([
+        rng.normal(size=(SOLUTE_SITES, 3)) * np.sqrt(KB * 300.0 / SOLUTE_MASS),
+        np.asarray(water_velocities)[kept]])
+
+
+def max_cell_occupancy(positions, box, counts):
+    """Most atoms in one cell of the (counts) grid over ``box``."""
+    frac = positions @ np.linalg.inv(box).T
+    frac -= np.floor(frac)
+    ci = np.minimum((frac * counts).astype(np.int64), np.asarray(counts) - 1)
+    cell = (ci[:, 0] * counts[1] + ci[:, 1]) * counts[2] + ci[:, 2]
+    return int(np.bincount(cell).max())

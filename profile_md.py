@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's MD step goes, on one NVIDIA GPU.
 
-    python3 profile_md.py
+    python3 profile_md.py [--solute]
 
-Builds the benchmark system of chip_smoke.py (23,289 atoms, PME, SETTLE,
-2 fs) from extras/bench_state_rigid.npz, warms make_md_step up with one
-200-step chunk, then:
+Builds the benchmark system of port_systems.py (23,289 atoms, PME, SETTLE,
+2 fs) from extras/bench_state_rigid.npz, or with ``--solute`` its solute
+system (the 12-site chain in that box, harmonic bonds, the gather
+constrainer for the waters, the min-image cell pair kernel), warms
+make_md_step up with one 200-step chunk, then:
 
 1. times five unprofiled 200-step chunks (torch.cuda.synchronize() around
    each) and prints the median and range of ms/step;
@@ -19,6 +21,7 @@ The timing lines name the card and its power limit as nvidia-smi reports
 them.
 """
 
+import argparse
 import subprocess
 import sys
 import time
@@ -26,9 +29,11 @@ from collections import defaultdict
 
 import numpy as np
 
-from chip_smoke import (CHUNK_STEPS, DT_PS, N_MOLECULES, STATE_FILE,
-                        build_system, max_cell_occupancy)
+from port_systems import (DT_PS, N_MOLECULES, STATE_FILE, WATER_MASSES,
+                          build_solute_system, build_system,
+                          max_cell_occupancy, solute_velocities)
 
+CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
 PROFILED_STEPS = 40
 
@@ -47,6 +52,10 @@ def busy_us(intervals):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--solute", action="store_true",
+                        help="profile the solute path (the chain in water)")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_md.py: no CUDA device", file=sys.stderr)
@@ -66,24 +75,32 @@ def main():
     dev = torch.device("cuda", 0)
     f32 = torch.float32
     system, force, box_len, constraints = build_system(nbt)
-    plan = plan_mod.build_plan(force, system)
-    n = plan.num_particles
     blob = np.load(STATE_FILE)
     pos_np = np.asarray(blob["positions"], dtype=np.float64)
+    vel_np = np.asarray(blob["velocities"], dtype=np.float64)
+    masses = np.tile(WATER_MASSES, N_MOLECULES)
+    bonds = None
+    if args.solute:
+        (system, force, pos_np, masses, constraints, bonds,
+         kept) = build_solute_system(nbt, pos_np, box_len)
+        vel_np = solute_velocities(vel_np, kept)
+    plan = plan_mod.build_plan(force, system)
+    n = plan.num_particles
     counts = neighbors.choose_cell_grid(plan.box0, plan.cutoff, n,
                                         target_skin=DEFAULT_SKIN)[0]
     occ = max_cell_occupancy(pos_np, plan.box0, counts)
     # a wider margin than chip_smoke.py's, as no capacity retry runs here
     capacity = max(8, int(np.ceil((occ + 16) / 4) * 4))
-    masses = np.tile([15.999, 1.008, 1.008], N_MOLECULES)
     run = make_md_step(plan, masses, dt=DT_PS, dtype=f32,
-                       cell_capacity=capacity, constraints=constraints)
+                       cell_capacity=capacity, constraints=constraints,
+                       bonds=bonds)
     data = engine_mod.plan_data(plan, device=dev, dtype=f32)
     box = torch.as_tensor(np.diag([box_len] * 3), device=dev).to(f32)
-    gvals = torch.ones(2, device=dev, dtype=f32)
+    gvals = torch.as_tensor(plan.global_defaults, device=dev).to(f32)
     p = torch.as_tensor(pos_np, device=dev).to(f32)
-    v = torch.as_tensor(blob["velocities"], device=dev).to(f32)
-    print(f"md: {n} atoms, config {run.config}")
+    v = torch.as_tensor(vel_np, device=dev).to(f32)
+    print(f"md: {n} atoms{' (solute path)' if args.solute else ''}, "
+          f"config {run.config}")
 
     p, v, _ = run(p, v, box, gvals, data, CHUNK_STEPS)       # warm-up
     ms = []

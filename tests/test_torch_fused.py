@@ -1,5 +1,7 @@
 """Port fused engine (prepare/apply) vs the JAX package's fused engine
-(Pallas kernels in interpret mode) and its all-pairs oracle."""
+(Pallas kernels in interpret mode) and its all-pairs oracle: the column
+kernel path (water triangles, reaction field) and the min-image cell kernel
+path (dimer exclusions under PME)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +26,16 @@ torch.set_num_threads(2)
 GVAL = 0.8
 
 
+def _gvals(plan_j):
+    """GVAL for every global parameter of the plan."""
+    return [GVAL] * len(plan_j.global_names)
+
+
 def _jax_inputs(plan_j, positions, dtype):
     data = {k: (v.astype(dtype) if v.dtype.kind == "f" else v)
             for k, v in jax_data_np(plan_j).items()}
     return (jnp.asarray(positions, dtype), jnp.asarray(plan_j.box0, dtype),
-            jnp.asarray([GVAL], dtype), data)
+            jnp.asarray(_gvals(plan_j), dtype), data)
 
 
 def _port_inputs(plan_j, positions, dtype):
@@ -36,7 +43,7 @@ def _port_inputs(plan_j, positions, dtype):
                                    dtype=dtype)
     return (torch.as_tensor(positions).to(dtype),
             torch.as_tensor(np.asarray(plan_j.box0)).to(dtype),
-            torch.tensor([GVAL], dtype=dtype), data)
+            torch.tensor(_gvals(plan_j), dtype=dtype), data)
 
 
 def _port_eval(plan_t, inputs, energies, pos_apply=None, **kw):
@@ -49,10 +56,17 @@ def _port_eval(plan_t, inputs, energies, pos_apply=None, **kw):
 
 
 @pytest.mark.parametrize("energies", [True, False])
-@pytest.mark.parametrize("case", ["water_pme", "pairs_rf"])
+@pytest.mark.parametrize("case", ["water_pme", "pairs_rf", "pairs_pme"])
 def test_fused_apply_matches_jax_fused(case, energies):
     if case == "water_pme":
         plan_j, plan_t, positions = both_plans(water_system)
+        kw = dict(cell_capacity=32)
+    elif case == "pairs_pme":
+        # dimer exclusions: the min-image cell kernel on both sides, with
+        # 1-4 exceptions and parameter offsets
+        plan_j, plan_t, positions = both_plans(
+            pair_system, nbs.SlicedNonbondedForce.PME, n_mol=100, box=3.0,
+            extras=True)
         kw = dict(cell_capacity=32)
     else:
         plan_j, plan_t, positions = both_plans(
@@ -150,8 +164,7 @@ def test_fused_preshift_face_crossing_during_reuse():
 
 def test_unported_methods_raise():
     for method, item in ((nbs.SlicedNonbondedForce.LJPME, "A10"),
-                         (nbs.SlicedNonbondedForce.Ewald, "A9"),
-                         (nbs.SlicedNonbondedForce.PME, "B4")):
+                         (nbs.SlicedNonbondedForce.Ewald, "A9")):
         _, plan_t, _ = both_plans(pair_system, method, n_mol=100)
         with pytest.raises(NotImplementedError, match=item):
             tfused.make_fused_engine(plan_t)

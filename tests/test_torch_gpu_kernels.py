@@ -110,6 +110,54 @@ def test_pair_kernel_matches_plain(cuda, mode, energies):
     assert torch.equal(f_k, f_k2)
 
 
+def _solute(n_mol=1000):
+    """The lattice of ``_water`` with port_systems.py's 12-site chain carved
+    into its centre: its exclusions are not water triangles, so the fused
+    engine takes the min-image cell kernel."""
+    from port_systems import build_solute_system
+    plan_w, positions = _water(n_mol)
+    box = float(plan_w.box0[0, 0])
+    system, force, pos, *_ = build_solute_system(nbt, positions, box)
+    return tplan.build_plan(force, system), pos
+
+
+@pytest.mark.parametrize("energies", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_pair_cell_kernel_matches_plain(cuda, periodic, energies):
+    import dataclasses
+    plan, positions = _solute()
+    prep, _, cfg = tfused.make_fused_engine(plan, energies=True)
+    pc = dataclasses.replace(cfg["pair"], exceptions_periodic=periodic)
+    data = tengine.plan_data(plan, device=cuda, dtype=torch.float32)
+    pos = torch.as_tensor(positions, device=cuda).float()
+    box = torch.as_tensor(np.asarray(plan.box0), device=cuda).float()
+    gvals = torch.tensor([0.5, 0.8], device=cuda)
+    st = prep(pos, box, gvals, data)
+    g, C = pc.n_cells, pc.capacity
+    slot_pos = (torch.cat([pos, pos.new_zeros((1, 3))])[st["slots"]]
+                .reshape(g, C, 3).transpose(1, 2) + st["padfix3"]).contiguous()
+    lam = torch.tensor([[1.0, 0.5], [0.5, 1.0]], device=cuda)
+    args = (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
+            st["sexcl"], lam, lam * 1.6, box, pc, energies,
+            plan.num_particles)
+    before = dict(cuda_direct.LAUNCHES)
+    f_k, m_k = cuda_direct.pair_cell(*args)
+    f_p, m_p = cuda_direct.pair_cell_plain(*args)
+    torch.cuda.synchronize()
+    key = "pair_cell_energies" if energies else "pair_cell"
+    assert cuda_direct.LAUNCHES[key] == before[key] + 1
+    assert float((f_k - f_p).abs().max()) <= 2e-5 * (float(f_p.abs().max())
+                                                     + 1.0)
+    if energies:
+        mk = m_k.double().sum(0)
+        mp = m_p.double().sum(0)
+        assert float((mk - mp).abs().max()) <= 1e-5 * (float(mp.abs().max())
+                                                         + 1.0)
+    # bitwise repeatable: no atomics in the pair kernel
+    f_k2, _ = cuda_direct.pair_cell(*args)
+    assert torch.equal(f_k, f_k2)
+
+
 def test_pme_kernels_match_plain(cuda):
     plan, positions = _water()
     s = _state(plan, positions, cuda)
@@ -129,6 +177,22 @@ def test_pme_kernels_match_plain(cuda):
                                   st["slot_sub"], recip, grid_shape,
                                   plan.num_subsets)
     assert torch.equal(grid_k, grid_k2)
+    # the double variant of energy evaluations: exact but for the 2^-32
+    # fixed-point steps of its adds
+    recip64 = recip_box_vectors(s["box"].double())
+    before = dict(cuda_pme.LAUNCHES)
+    grid_k64 = cuda_pme.pme_spread(s["slot_pos"], st["slot_q"],
+                                   st["slot_sub"], recip64, grid_shape,
+                                   plan.num_subsets, double=True)
+    grid_p64 = cuda_pme.pme_spread_plain(s["slot_pos"], st["slot_q"],
+                                         st["slot_sub"], recip64, grid_shape,
+                                         plan.num_subsets, double=True)
+    torch.cuda.synchronize()
+    assert cuda_pme.LAUNCHES["pme_spread_energies"] == (
+        before["pme_spread_energies"] + 1)
+    assert grid_k64.dtype == torch.float64
+    assert float((grid_k64 - grid_p64).abs().max()) <= 1e-7 * float(
+        grid_p64.abs().max())
 
     eterm = torch.as_tensor(tpme.coulomb_eterm_np(
         grid_shape, s["cfg"]["pme_moduli"], plan.box0, plan.ewald_alpha),
@@ -150,7 +214,7 @@ def test_fused_engine_on_card_matches_cpu_f64(cuda):
     s = _state(plan, positions, cuda)
     e_g, f_g, _ = s["app"](s["pos"], s["box"], s["gvals"], s["data"], s["st"])
     prep, app, _ = tfused.make_fused_engine(plan, energies=True)
-    data = tengine.plan_data(plan, dtype=torch.float64)
+    data = tengine.plan_data(plan, device="cpu", dtype=torch.float64)
     pos = torch.as_tensor(positions)
     box = torch.as_tensor(np.asarray(plan.box0))
     gvals = torch.tensor([0.7], dtype=torch.float64)

@@ -34,5 +34,6 @@ def test_kernel_build_is_lazy():
     from nonbondedslicing_tpu_torch.runtime import kernels
     assert kernels.CSRC_DIR.is_dir()
     names = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
-    assert names == {"pair_column.cu", "pme_spread.cu", "pme_interp.cu"}
+    assert names == {"pair_column.cu", "pair_cell.cu", "pme_spread.cu",
+                     "pme_interp.cu"}
     assert len(kernels.source_hash()) == 16

@@ -1,22 +1,31 @@
 """Port MD step (make_md_step) vs the JAX package's on the rigid-water box
-of tests/test_md_conservation.py, and its guards.
+of tests/test_md_conservation.py, on a flexible chain solvated in water,
+and its guards.
 
 The box holds 512 waters instead of 125: the fused engine needs at least 3
 cells of one cutoff per axis, and the 125-water box (1.55 nm) runs the JAX
 package's per-step rebuild fallback, which the port has not yet
-(ROADMAP A9)."""
+(ROADMAP A9).  The solute box is port_systems.py's solute system at a small
+size: its 12-site chain with harmonic bonds in a 3 nm box of 216 waters
+spread to a third of water's density, so that it has 3 cells of its 0.9 nm
+cutoff per axis."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import nonbondedslicing_tpu as nbs
+from nonbondedslicing_tpu.ops import plan as jplan
 from nonbondedslicing_tpu.runtime.fastpath import make_md_step as jax_md_step
 
 import nonbondedslicing_tpu_torch as nbt
+from nonbondedslicing_tpu_torch.ops import cuda_direct
 from nonbondedslicing_tpu_torch.ops import engine as tengine
+from nonbondedslicing_tpu_torch.ops import plan as tplan
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
+from port_systems import KB, build_solute_system
 from tests.test_torch_plan import both_plans, jax_data_np, water_box
 
 torch.set_num_threads(2)
@@ -83,5 +92,57 @@ def test_md_unported_options_raise():
     plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
     with pytest.raises(NotImplementedError, match="A7"):
         make_md_step(plan_t, masses, dt=0.001, mixed_precision=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_md_step(plan_t, masses, dt=0.001, bonds=[(0, 1, 0.1, 1000.0)])
+    # harmonic bonds are ported
+    run = make_md_step(plan_t, masses, dt=0.001, bonds=[(0, 1, 0.1, 1000.0)])
+    assert run.config["reuse_steps"] >= 1
+
+
+SOLUTE_BOX = 3.0
+
+
+def _solute_box(api):
+    """port_systems.build_solute_system on 216 waters spread over a 3 nm box."""
+    _, _, positions, _, _, box = water_box(api, n_mol=216, seed=5)
+    waters = positions.reshape(-1, 3, 3)
+    waters = waters + waters[:, :1] * (SOLUTE_BOX / box - 1.0)
+    return build_solute_system(api, waters.reshape(-1, 3), SOLUTE_BOX)
+
+
+def test_md_solute_trajectory_matches_jax(monkeypatch):
+    """20 steps of the chain in water, with bonds and the gather
+    constrainer, through the cell pair kernel on both sides: positions to
+    2e-4 nm, the final energy to 1e-3 relative (float32)."""
+    out_j, out_t = _solute_box(nbs), _solute_box(nbt)
+    plan_j = jplan.build_plan(out_j[1], out_j[0])
+    plan_t = tplan.build_plan(out_t[1], out_t[0])
+    _, _, positions, masses, constraints, bonds, _ = out_t
+    np.testing.assert_array_equal(positions, out_j[2])
+    rng = np.random.default_rng(11)
+    vel = rng.normal(size=positions.shape) * np.sqrt(KB * 300.0 / masses)[:, None]
+    box = np.diag([SOLUTE_BOX] * 3)
+    gvals = plan_t.global_defaults
+    calls = {"pair_cell": 0, "pair_column": 0}
+    for name in calls:
+        def counted(*args, _name=name, _fn=getattr(cuda_direct, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(cuda_direct, name, counted)
+
+    run_t = make_md_step(plan_t, masses, dt=0.002, dtype=torch.float32,
+                         constraints=constraints, bonds=bonds, reuse_steps=2)
+    data_t = tengine.plan_data(plan_t, device="cpu", dtype=torch.float32)
+    p_t, v_t, e_t = run_t(positions, vel, box, gvals, data_t, 20)
+    assert run_t.config["counts"] == (3, 3, 3)
+    assert calls == {"pair_cell": 21, "pair_column": 0}
+
+    run_j = jax_md_step(plan_j, masses, dt=0.002, dtype=jnp.float32,
+                        constraints=constraints, bonds=bonds, reuse_steps=2)
+    data_j = {k: (v.astype(np.float32) if v.dtype.kind == "f" else v)
+              for k, v in jax_data_np(plan_j).items()}
+    p_j, v_j, e_j = run_j(jnp.asarray(positions, jnp.float32),
+                          jnp.asarray(vel, jnp.float32),
+                          jnp.asarray(box, jnp.float32),
+                          jnp.asarray(gvals, jnp.float32), data_j, 20)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0,
+                               atol=2e-4)
+    np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)

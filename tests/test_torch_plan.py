@@ -202,7 +202,7 @@ def test_plan_data_and_data_from_numpy(dtype):
                                    nbs.SlicedNonbondedForce.PME, extras=True)
     from_jax = tengine.data_from_numpy(jax_data_np(plan_j), device="cpu",
                                        dtype=dtype)
-    own = tengine.plan_data(plan_t, dtype=dtype)
+    own = tengine.plan_data(plan_t, device="cpu", dtype=dtype)
     assert set(from_jax) == set(own) == set(tengine.DATA_KEYS)
     for key, ref in jax_data_np(plan_j).items():
         for t in (from_jax[key], own[key]):
@@ -218,6 +218,15 @@ def test_plan_data_and_data_from_numpy(dtype):
             else:
                 assert t.dtype == torch.int64
                 np.testing.assert_array_equal(t.numpy(), ref)
+
+
+def test_plan_data_defaults_to_the_card():
+    """The parameter tensors, and so the MD step that runs where they lie,
+    go to the card unless the caller names another device."""
+    import inspect
+    device = inspect.signature(tengine.plan_data).parameters["device"]
+    assert device.default == "cuda"
+    assert device.kind == inspect.Parameter.KEYWORD_ONLY
 
 
 def test_energy_contractions_match_jax():

@@ -141,3 +141,33 @@ def test_spread_grid_is_the_jax_grid(grid):
                                  theta, grid, NSUB)
     np.testing.assert_allclose(grid_t.numpy(), np.asarray(grid_j), rtol=0,
                                atol=1e-12)
+
+
+def test_energies_spread_in_double():
+    """An evaluation with energies takes its slice energies from a float64
+    spread of the float32 inputs (double splines and weights): they equal
+    the float64 evaluation of the same rounded inputs to 1e-12, where float
+    splines would leave ~1e-7 of the grid's scale.  Its forces come from the
+    float32 grid: bitwise those of the force-only call."""
+    positions, charge, subsets, lam = _inputs()
+    box, _, slot_pos, slot_q, slot_sub = _port_slots(positions, charge,
+                                                     subsets, torch.float32)
+    moduli = tpme.bspline_moduli(GRID)
+    eterm = torch.as_tensor(tpme.coulomb_eterm_np(
+        GRID, moduli, box.double().numpy(), ALPHA)).float()
+    lam_nn = torch.as_tensor(lam[slice_pair_table(NSUB)])
+    kw = dict(grid_shape=GRID, slice_subset_pairs=slice_subsets(NSUB))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        out[dtype] = cuda_pme.pme_reciprocal(
+            slot_pos.to(dtype), slot_q.to(dtype), slot_sub, box.to(dtype),
+            lam_nn.to(dtype), eterm=eterm.to(dtype), **kw)
+    _, f_only = cuda_pme.pme_reciprocal(slot_pos, slot_q, slot_sub, box,
+                                        lam_nn.float(), eterm=eterm,
+                                        energies=False, **kw)
+    (e32, f32), (e64, f64) = out[torch.float32], out[torch.float64]
+    assert e32.dtype == torch.float64 and f32.dtype == torch.float32
+    np.testing.assert_allclose(e32.numpy(), e64.numpy(), rtol=1e-12)
+    assert torch.equal(f32, f_only)
+    np.testing.assert_allclose(f32.numpy(), f64.numpy(), rtol=0,
+                               atol=2e-5 * (np.abs(f64.numpy()).max() + 1.0))

@@ -43,15 +43,27 @@ the last line:
    (nsub 2), the card-f32 vs CPU-f64 evaluations of phase 4, and
    make_md_step with the bonds and the water constraints: one 200-step
    warm-up chunk, then three timed chunks; energy, constraints,
-   temperature and the launch counts (pair_cell > 0, pair_column 0).
+   temperature and the launch counts (pair_cell > 0, pair_column 0);
+7. the brick-window PME pipeline (pme_pipeline="grid"): at both boxes'
+   shapes the window spread, fold, extract and window interpolation kernels
+   against their plain twins (fold and extract to the bit), the folded
+   windows against the whole-grid spread and the pipeline's forces against
+   the default pipeline's; the evaluations of phases 4 and 6 through it
+   against the same CPU float64 references; and the benchmark's MD through
+   make_md_step(pme_pipeline="grid"), one warm-up chunk and three timed
+   chunks, with the window kernels launched on every step and the
+   whole-grid float kernels never, its ms/step beside phase 5's.
 
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid" or
-"solute"): launches in that path's MD run, max abs error against the plain
+"solute"): launches in that path's run (the MD runs of phases 5, 6 and 7;
+the solute box's evaluation of phase 7), max abs error against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
 operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
 tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
-and written once over 3.35 TB/s.  The last line is
+and written once over 3.35 TB/s; library_ms is the time of one PyTorch call
+that computes the same function where there is one (fold: index_add_,
+extract: take; the port calls neither), else null.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -75,12 +87,15 @@ PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
 SOLUTE_TIMED_CHUNKS = 3
+GRID_TIMED_CHUNKS = 3
+BACKLOG_MS = 1.0          # see cuda_ms
 
 # tolerances (kernel vs plain twin on the card; card f32 vs CPU f64)
 TOL_FORCE = 2e-5          # of max|F| + 1
 TOL_ENERGY = 1e-5         # of max|E| + 1, after the f64 reduction
 TOL_GRID = 2e-5           # of the spread grid's max
 TOL_GRID64 = 1e-7         # of the max, the double spread (2^-32 fixed point)
+TOL_GRID_SUM = 1e-6       # relative, a subset's charge on either design's grid
 TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
 TOL_EVAL_DERIV = 1e-5     # relative dE/dlambda
@@ -101,6 +116,7 @@ SPREAD_OPS = 466        # a charged atom: coordinates, 3 splines, 125 weights
 GRID_POINT_OPS = 2      # a grid point: fixed point to float (pme_spread.cu)
 INTERP_OPS = 935        # a charged atom: splines and derivatives, 125-point
                         # gradient, force (pme_interp.cu)
+FOLD_OPS = 1            # a window point beyond a grid point's first: one add
 
 # the port's kernels: launch-count key -> (source, the TPU kernel's
 # pallas_call it replaces)
@@ -119,23 +135,44 @@ KERNELS = {
                   "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
     "pair_cell_energies": ("csrc/pair_cell.cu",
                            "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
+    "pme_spread_windows": ("csrc/pme_spread_windows.cu",
+                           "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
+    "pme_fold": ("csrc/pme_fold.cu",
+                 "nonbondedslicing_tpu/ops/pallas_pme.py:249"),
+    "pme_extract": ("csrc/pme_extract.cu",
+                    "nonbondedslicing_tpu/ops/pallas_pme.py:316"),
+    "pme_interp_windows": ("csrc/pme_interp_windows.cu",
+                           "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
 }
-# the entries of the kernels line: (name, kernel, path), each kernel held
-# against its plain twin at its path's shapes and counted in its path's run
+WINDOW_KERNELS = ("pme_spread_windows", "pme_fold", "pme_extract",
+                  "pme_interp_windows")
+# the entries of the kernels line: (name, kernel, path, run), each kernel
+# held against its plain twin at its path's shapes and counted in the run
+# of that path that goes through it
 ENTRIES = (
-    ("pair_column", "pair_column", "rigid"),
-    ("pair_column_energies", "pair_column_energies", "rigid"),
-    ("pme_spread", "pme_spread", "rigid"),
-    ("pme_spread_energies", "pme_spread_energies", "rigid"),
-    ("pme_interp", "pme_interp", "rigid"),
-    ("pair_cell", "pair_cell", "solute"),
-    ("pair_cell_energies", "pair_cell_energies", "solute"),
-    ("pme_spread_solute", "pme_spread", "solute"),
-    ("pme_spread_energies_solute", "pme_spread_energies", "solute"),
-    ("pme_interp_solute", "pme_interp", "solute"),
-)
-PATH_KERNELS = {path: {k for _, k, p in ENTRIES if p == path}
-                for path in ("rigid", "solute")}
+    ("pair_column", "pair_column", "rigid", "rigid"),
+    ("pair_column_energies", "pair_column_energies", "rigid", "rigid"),
+    ("pme_spread", "pme_spread", "rigid", "rigid"),
+    ("pme_spread_energies", "pme_spread_energies", "rigid", "rigid"),
+    ("pme_interp", "pme_interp", "rigid", "rigid"),
+    ("pair_cell", "pair_cell", "solute", "solute"),
+    ("pair_cell_energies", "pair_cell_energies", "solute", "solute"),
+    ("pme_spread_solute", "pme_spread", "solute", "solute"),
+    ("pme_spread_energies_solute", "pme_spread_energies", "solute", "solute"),
+    ("pme_interp_solute", "pme_interp", "solute", "solute"),
+) + tuple((k, k, "rigid", "rigid_grid") for k in WINDOW_KERNELS) + tuple(
+    (k + "_solute", k, "solute", "solute_grid") for k in WINDOW_KERNELS)
+# the kernels each run must launch; it must launch no other
+RUN_KERNELS = {
+    "rigid": {"pair_column", "pair_column_energies", "pme_spread",
+              "pme_spread_energies", "pme_interp"},
+    "solute": {"pair_cell", "pair_cell_energies", "pme_spread",
+               "pme_spread_energies", "pme_interp"},
+    "rigid_grid": {"pair_column", "pair_column_energies",
+                   "pme_spread_energies", *WINDOW_KERNELS},
+    "solute_grid": {"pair_cell", "pair_cell_energies", "pme_spread_energies",
+                    *WINDOW_KERNELS},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -148,6 +185,18 @@ def check(ok, what):
         raise SmokeFailure(what)
 
 
+def check_launches(label, run, launches):
+    """Every kernel of ``run`` was launched in it, and no other kernel."""
+    for name in KERNELS:
+        if name in RUN_KERNELS[run]:
+            check(launches[name] > 0,
+                  f"{label}: {name} launched {launches[name]} times")
+        else:
+            check(launches[name] == 0,
+                  f"{label}: {name} launched {launches[name]} times (not "
+                  f"this run's kernel)")
+
+
 def exclusion_span(positions, pairs, box_len):
     """Largest minimum-image distance of the excluded pairs (cubic box)."""
     d = positions[pairs[:, 0]] - positions[pairs[:, 1]]
@@ -155,28 +204,68 @@ def exclusion_span(positions, pairs, box_len):
     return float(np.linalg.norm(d, axis=1).max())
 
 
-def cuda_ms(fn, reps):
-    """Mean ms per call of fn over reps calls after one warm-up call."""
+def cuda_ms(fn, reps, what=None):
+    """Mean ms per call of fn over reps calls after one warm-up call.  The
+    timed calls are queued while the card works off two large matrix
+    products (a few ms), so that they run back to back: the time is the
+    device's, not the rate at which the host can launch (0.02-0.04 ms a
+    call through a wrapper, more than the small kernels take).  That holds
+    if the card never waited for the host, which is checked: either the
+    host had queued the last call before the card finished the products
+    (an event after them says so), or the card still had BACKLOG_MS of work
+    in front of it when the host had queued the last, far more than the
+    0.05 ms a synchronize takes (with the products at the start and equal
+    calls between, it then had work throughout).  Otherwise the measurement
+    is taken again behind as many products as take twice the time the host
+    needed, and fails the run the third time.  A plain twin (``what``
+    given) is not held to this: PyTorch's own time for its hundreds of
+    small launches is part of what the plain version costs, and the line
+    printed says that the time is the host's."""
     import torch
     fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    busy = torch.ones((4096, 4096), device="cuda")
+    n_busy = 2
+    for _ in range(3):
+        torch.cuda.synchronize()
+        busy_start = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        busy_start.record()
+        for _ in range(n_busy):
+            torch.mm(busy, busy)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued_in_time = not start.query()
+        t1 = time.perf_counter()
+        stop.synchronize()
+        backlog_ms = 1e3 * (time.perf_counter() - t1)
+        ms = start.elapsed_time(stop) / reps
+        if queued_in_time or backlog_ms > BACKLOG_MS:
+            return ms
+        host_ms = 1e3 * (t1 - t0)
+        if what is not None:
+            print(f"{what}: the card waited for the host, which took "
+                  f"{host_ms / reps:.4f} ms to queue a call: the time is "
+                  f"the host's", flush=True)
+            return ms
+        product_ms = busy_start.elapsed_time(start) / n_busy
+        n_busy = int(2 * host_ms / product_ms) + 2
+    raise SmokeFailure(f"cuda_ms: the host took {host_ms:.1f} ms to queue "
+                       f"{reps} calls of {ms:.4f} ms and the card did not "
+                       f"stay busy that long: the time would be the host's "
+                       f"launch rate")
 
 
-def timed_pair(kernel_fn, plain_fn, reps):
+def timed_pair(kernel_fn, plain_fn, reps, what="plain twin"):
     """(kernel ms, plain ms), measured in turns plain, kernel, kernel,
     plain."""
-    p1 = cuda_ms(plain_fn, reps)
+    p1 = cuda_ms(plain_fn, reps, what)
     k1 = cuda_ms(kernel_fn, reps)
     k2 = cuda_ms(kernel_fn, reps)
-    p2 = cuda_ms(plain_fn, reps)
+    p2 = cuda_ms(plain_fn, reps, what)
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
 
 
@@ -374,12 +463,180 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
     return {spread_name: spread, spread64_name: spread64, interp_name: interp}
 
 
+def window_grid_index(grid_shape, bricks, nsub, device):
+    """Flat int64 index into the +1-shifted grids (nsub, nx, ny, nz) of every
+    window element (bx, by, bz, nsub, wx, wy, wz): window point u of brick b
+    lies on grid line (b*p + u) mod n."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import pme_bricks
+    lines = []
+    for n, b, (p, w) in zip(grid_shape, bricks,
+                            pme_bricks.brick_window(grid_shape, bricks)):
+        lines.append((torch.arange(b, device=device)[:, None] * p
+                      + torch.arange(w, device=device)[None, :]) % n)
+    ix, iy, iz = lines                                   # (b, w) each
+    nx, ny, nz = grid_shape
+    s = torch.arange(nsub, device=device)
+    return (((s[None, None, None, :, None, None, None] * nx
+              + ix[:, None, None, None, :, None, None]) * ny
+             + iy[None, :, None, None, None, :, None]) * nz
+            + iz[None, None, :, None, None, None, :]).contiguous()
+
+
+def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
+                         reps):
+    """The four kernels of the window pipeline against their plain twins on
+    one path's slot tensors, regrouped brick-major: the windows within
+    TOL_GRID of their max and bitwise repeatable, fold and extract equal to
+    the bit, the forces within TOL_FORCE; CUDA-event times and the bound of
+    each.  Then the two designs against each other: the folded windows,
+    rolled back by one point, against the whole-grid spread (TOL_GRID of its
+    max, each subset's charge to TOL_GRID_SUM: no point dropped), and the
+    reciprocal forces of the two pipelines (TOL_FORCE), the window
+    pipeline's bitwise repeatable.  Returns the results by entry name."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_pme, pme_bricks
+    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
+    from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
+    from nonbondedslicing_tpu_torch.utils.indexing import slice_subsets
+    recip = recip_box_vectors(box)
+    grid_shape, bricks, counts = cfg["pme_grid"], cfg["bricks"], cfg["counts"]
+    nsub = lam_c_nn.shape[0]
+
+    def to_bricks(x):
+        return pme_bricks.cells_to_bricks(x, counts, bricks).contiguous()
+
+    pos_b = to_bricks(slot_pos)
+    q_b = to_bricks(st["slot_q"][:, None])[:, 0].contiguous()
+    sub_b = to_bricks(st["slot_sub"][:, None])[:, 0].contiguous()
+    gb, _, Cb = pos_b.shape
+    n_grid = nsub * int(np.prod(grid_shape))
+    n_charged = int((q_b != 0).sum())
+    slot_bytes = 4 * gb * Cb * 5 + 4 * 9
+    out = {}
+
+    def record(kernel, err, kernel_fn, plain_fn, ops, nbytes,
+               library_fn=None):
+        ms, plain_ms = timed_pair(kernel_fn, plain_fn, reps)
+        library_ms = library_fn and cuda_ms(library_fn, reps)
+        print(f"{kernel}{suffix}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + (f", library call {library_ms:.4f} ms" if library_fn else ""))
+        bound_ms, bound_by = bound(ops, nbytes)
+        out[kernel + suffix] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=library_ms)
+
+    spread_args = (pos_b, q_b, sub_b, recip, grid_shape, bricks, nsub)
+    W_k = cuda_pme.pme_spread_windows(*spread_args)
+    W_p = cuda_pme.pme_spread_windows_plain(*spread_args)
+    torch.cuda.synchronize()
+    n_window = W_k.numel()
+    err = float((W_k - W_p).abs().max())
+    wmax = float(W_p.abs().max())
+    check(err <= TOL_GRID * wmax, f"pme_spread_windows{suffix}: windows "
+          f"{tuple(W_k.shape)} max|d| {err:.3e} <= {TOL_GRID} * max "
+          f"{wmax:.3f}")
+    check(torch.equal(W_k, cuda_pme.pme_spread_windows(*spread_args)),
+          f"pme_spread_windows{suffix}: bitwise repeatable (no atomics)")
+    record("pme_spread_windows", err,
+           lambda: cuda_pme.pme_spread_windows(*spread_args),
+           lambda: cuda_pme.pme_spread_windows_plain(*spread_args),
+           n_charged * SPREAD_OPS, slot_bytes + 4 * n_window)
+
+    shifted = cuda_pme.pme_fold(W_k)
+    check(torch.equal(shifted, cuda_pme.pme_fold_plain(W_k)),
+          f"pme_fold{suffix}: grid {tuple(shifted.shape)} equal to the plain "
+          f"twin's to the bit")
+    # the one-call library versions, timed here and used nowhere in the
+    # port: fold is one index_add_ of the window elements at their grid
+    # points (float atomics, so not to the bit), extract one take
+    w_index = window_grid_index(grid_shape, bricks, nsub, slot_pos.device)
+
+    def library_fold():
+        return torch.zeros(n_grid, device=W_k.device).index_add_(
+            0, w_index.reshape(-1), W_k.reshape(-1)).reshape(shifted.shape)
+
+    err = float((library_fold() - shifted).abs().max())
+    smax = float(shifted.abs().max())
+    check(err <= TOL_GRID * smax, f"pme_fold{suffix}: one index_add_ gives "
+          f"the same grid, max|d| {err:.3e} <= {TOL_GRID} * max {smax:.3f}")
+    record("pme_fold", 0.0, lambda: cuda_pme.pme_fold(W_k),
+           lambda: cuda_pme.pme_fold_plain(W_k),
+           (n_window - n_grid) * FOLD_OPS, 4 * n_window + 4 * n_grid,
+           library_fold)
+
+    eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
+        grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
+        device=slot_pos.device).to(torch.float32)
+    spec = torch.fft.rfftn(shifted, dim=(1, 2, 3))
+    phi = torch.fft.irfftn(
+        torch.einsum("st,txyk->sxyk", lam_c_nn.to(spec.dtype), spec * eterm),
+        s=tuple(grid_shape), dim=(1, 2, 3), norm="forward").contiguous()
+    W_phi = cuda_pme.pme_extract(phi, bricks)
+    check(torch.equal(W_phi, cuda_pme.pme_extract_plain(phi, bricks)),
+          f"pme_extract{suffix}: windows equal to the plain twin's to the bit")
+    check(torch.equal(W_phi, torch.take(phi, w_index)),
+          f"pme_extract{suffix}: one take gives the same windows to the bit")
+    record("pme_extract", 0.0, lambda: cuda_pme.pme_extract(phi, bricks),
+           lambda: cuda_pme.pme_extract_plain(phi, bricks), 0,
+           4 * n_grid + 4 * n_window, lambda: torch.take(phi, w_index))
+
+    interp_args = (W_phi, pos_b, q_b, sub_b, recip)
+    f_k = cuda_pme.pme_interp_windows(*interp_args)
+    f_p = cuda_pme.pme_interp_windows_plain(*interp_args)
+    torch.cuda.synchronize()
+    err = float((f_k - f_p).abs().max())
+    fmax = float(f_p.abs().max())
+    check(err <= TOL_FORCE * (fmax + 1.0),
+          f"pme_interp_windows{suffix}: forces max|dF| {err:.3e} <= "
+          f"{TOL_FORCE} * (max|F| {fmax:.1f} + 1)")
+    record("pme_interp_windows", err,
+           lambda: cuda_pme.pme_interp_windows(*interp_args),
+           lambda: cuda_pme.pme_interp_windows_plain(*interp_args),
+           n_charged * INTERP_OPS,
+           4 * n_window + slot_bytes + 4 * gb * 3 * Cb)
+
+    # the two designs against each other
+    grid_s = cuda_pme.pme_spread(slot_pos, st["slot_q"], st["slot_sub"],
+                                 recip, grid_shape, nsub)
+    grid_w = torch.roll(shifted, (-1, -1, -1), (1, 2, 3))
+    err = float((grid_w - grid_s).abs().max())
+    gmax = float(grid_s.abs().max())
+    check(err <= TOL_GRID * gmax, f"grid pipeline{suffix}: folded windows vs "
+          f"whole-grid spread max|d| {err:.3e} <= {TOL_GRID} * max {gmax:.3f}")
+    sum_w = grid_w.double().sum(dim=(1, 2, 3))
+    sum_s = grid_s.double().sum(dim=(1, 2, 3))
+    rel = float(((sum_w - sum_s).abs() / sum_s.abs().clamp(min=1.0)).max())
+    check(rel <= TOL_GRID_SUM, f"grid pipeline{suffix}: subset charges on "
+          f"the two grids agree to {rel:.3e} <= {TOL_GRID_SUM} (no point "
+          f"dropped)")
+    kw = dict(grid_shape=grid_shape, eterm=eterm,
+              slice_subset_pairs=slice_subsets(nsub), energies=False)
+    _, f_s = cuda_pme.pme_reciprocal(slot_pos, st["slot_q"], st["slot_sub"],
+                                     box, lam_c_nn, **kw)
+    f_w = [pme_bricks.bricks_to_cells(cuda_pme.pme_reciprocal(
+        pos_b, q_b, sub_b, box, lam_c_nn, pipeline="grid", bricks=bricks,
+        **kw)[1].transpose(1, 2), counts, bricks).transpose(1, 2)
+        for _ in range(2)]
+    err = float((f_w[0] - f_s).abs().max())
+    fmax = float(f_s.abs().max())
+    check(err <= TOL_FORCE * (fmax + 1.0),
+          f"grid pipeline{suffix}: reciprocal forces vs the stencil "
+          f"pipeline's max|dF| {err:.3e} <= {TOL_FORCE} * (max|F| "
+          f"{fmax:.1f} + 1)")
+    check(torch.equal(f_w[0], f_w[1]),
+          f"grid pipeline{suffix}: reciprocal forces bitwise repeatable")
+    return out
+
+
 def evaluation_check(label, plan, capacity, apply, state, pos, box, gvals,
-                     data, pos_np, box_np, gvals_np):
+                     data, pos_np, box_np, gvals_np, pme_pipeline="stencil",
+                     reference=None):
     """One apply with energies in f32 on the card against the same code on
-    CPU tensors in f64 (``cpu_evaluation`` of the numpy inputs): total
-    energy, forces and every dE/dlambda; and the forces of one force-only
-    apply, the variant every MD inner step runs.  Returns the CPU result."""
+    CPU tensors in f64 (``cpu_evaluation`` of the numpy inputs, or the
+    ``reference`` an earlier call returned): total energy, forces and every
+    dE/dlambda; and the forces of one force-only apply, the variant every MD
+    inner step runs, through ``pme_pipeline``.  Returns the CPU result."""
     import torch
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
@@ -389,11 +646,12 @@ def evaluation_check(label, plan, capacity, apply, state, pos, box, gvals,
     e_g, f_g, _ = apply(pos, box, gvals, data, state)
     prepare_f, apply_f, _ = fused_mod.make_fused_engine(
         plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
-        energies=False)
+        energies=False, pme_pipeline=pme_pipeline)
     _, f_fo, _ = apply_f(pos, box, gvals, data,
                          prepare_f(pos, box, gvals, data))
     torch.cuda.synchronize()
-    E_c, f_c, d_c = cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np)
+    E_c, f_c, d_c = reference or cpu_evaluation(plan, capacity, pos_np,
+                                                box_np, gvals_np)
     E_g = float(engine_mod.contract_energy(
         e_g.cpu(), slice_lambdas(plan.lam_source,
                                  torch.as_tensor(gvals_np, dtype=torch.float64))))
@@ -459,7 +717,8 @@ def run_md(make_run, capacity, p, v, box, gvals, data, n_timed, guard_exc):
 def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
               n_atoms, card):
     """Energy finite, water constraints, temperature; prints the median and
-    range of ms/step and ns/day of the timed chunks."""
+    range of ms/step and ns/day of the timed chunks and returns their sorted
+    ms/step."""
     e_md = float(energy)
     check(math.isfinite(e_md), f"{label}: energy {e_md:.3f} kJ/mol is finite")
     p64 = p.double().cpu().numpy()[first_water:].reshape(-1, 3, 3)
@@ -480,6 +739,7 @@ def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
     print(f"{label}: {ms_step:.3f} ms/step median of {len(ms)} x "
           f"{CHUNK_STEPS} steps (range {ms[0]:.3f}-{ms[-1]:.3f}), "
           f"{ns_day:.2f} ns/day at {DT_PS} ps ({n_atoms} atoms, {card})")
+    return ms
 
 
 def main():
@@ -593,8 +853,8 @@ def main():
         box, cfg, plan, lam_c_nn, reps))
 
     # ---- 4. whole evaluation: card f32 vs CPU f64 (plain twins)
-    evaluation_check("evaluation", plan, capacity, apply, st, pos, box, gvals,
-                     data, pos_np, box_np, np.ones(2))
+    reference = evaluation_check("evaluation", plan, capacity, apply, st, pos,
+                                 box, gvals, data, pos_np, box_np, np.ones(2))
 
     # ---- 5. MD: the benchmark path, counted
     def make_bench_run(cap, reuse):
@@ -611,17 +871,10 @@ def main():
     print(f"md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, timed "
           f"chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
-    for name in KERNELS:
-        if name in PATH_KERNELS["rigid"]:
-            check(launches[name] > 0,
-                  f"md: {name} launched {launches[name]} times")
-        else:
-            check(launches[name] == 0,
-                  f"md: {name} launched {launches[name]} times (not this "
-                  f"path's kernel)")
-    md_checks("md", p, v, energy, masses, 0, 3 * n - 3 * N_MOLECULES - 3,
-              chunk_s, n, card)
-    path_launches = {"rigid": launches}
+    check_launches("md", "rigid", launches)
+    ms_stencil = md_checks("md", p, v, energy, masses, 0,
+                           3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
+    run_launches = {"rigid": launches}
 
     # ---- 6. the solute path: the min-image cell kernel
     t0 = time.time()
@@ -688,7 +941,7 @@ def main():
          "pme_interp_solute"), s_slot_pos, s_st, box,
         s_cfg, s_plan, s_lam_c_nn, reps))
 
-    _, _, d_exact = evaluation_check(
+    s_reference = evaluation_check(
         "solute evaluation", s_plan, s_capacity, s_apply, s_st, s_pos, box,
         s_gvals, s_data, s_pos_np, box_np, s_plan.global_defaults)
     # the part of that gap no f32 evaluation can close: the solute's weak
@@ -697,7 +950,8 @@ def main():
         s_plan, s_capacity, s_pos.double().cpu().numpy(),
         box.double().cpu().numpy(), s_gvals.double().cpu().numpy())
     print(f"solute evaluation: rounding the inputs to f32 moves dE/dlambda "
-          f"of the f64 evaluation by {(d_rounded - d_exact).tolist()} kJ/mol")
+          f"of the f64 evaluation by {(d_rounded - s_reference[2]).tolist()} "
+          f"kJ/mol")
 
     def make_solute_run(cap, reuse):
         return make_md_step(s_plan, s_masses, dt=DT_PS, dtype=f32,
@@ -713,30 +967,86 @@ def main():
     print(f"solute md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
-    for name in KERNELS:
-        if name in PATH_KERNELS["solute"]:
-            check(launches[name] > 0,
-                  f"solute md: {name} launched {launches[name]} times")
-        else:
-            check(launches[name] == 0,
-                  f"solute md: {name} launched {launches[name]} times (the "
-                  f"cell kernel carries the direct space)")
+    check_launches("solute md", "solute", launches)
     span = exclusion_span(p.double().cpu().numpy(), s_plan.exclusion_pairs,
                           box_len)
     check(span < width, f"solute md: excluded pairs span at most "
           f"{span:.4f} nm < one cell width {width:.4f} nm after the run")
     md_checks("solute md", p, v, energy, s_masses, SOLUTE_SITES,
               3 * s_n - 3 * n_waters - 3, chunk_s, s_n, card)
-    path_launches["solute"] = launches
+    run_launches["solute"] = launches
+
+    # ---- 7. the brick-window PME pipeline (pme_pipeline="grid")
+    results.update(window_kernel_checks("", slot_pos, st, box, cfg, plan,
+                                        lam_c_nn, reps))
+    results.update(window_kernel_checks("_solute", s_slot_pos, s_st, box,
+                                        s_cfg, s_plan, s_lam_c_nn, reps))
+    prepare_g, apply_g, cfg_g = fused_mod.make_fused_engine(
+        plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
+        energies=True, pme_pipeline="grid")
+    print(f"grid pipeline: bricks {cfg_g['bricks']} of the PME grid "
+          f"{cfg_g['pme_grid']}")
+    evaluation_check("grid evaluation", plan, capacity, apply_g,
+                     prepare_g(pos, box, gvals, data), pos, box, gvals, data,
+                     pos_np, box_np, np.ones(2), pme_pipeline="grid",
+                     reference=reference)
+
+    def make_grid_run(cap, reuse):
+        return make_md_step(plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints, pme_pipeline="grid")
+
+    reset_launches()
+    p, v, energy, chunk_s, config = run_md(
+        make_grid_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
+        GRID_TIMED_CHUNKS, nbt.OpenMMException)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"grid md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
+          f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
+          f"{launches}")
+    check_launches("grid md", "rigid_grid", launches)
+    # one pair kernel and one of each window kernel per evaluation, one
+    # double spread per evaluation with energies
+    n_eval = launches["pair_column"] + launches["pair_column_energies"]
+    check(all(launches[k] == n_eval for k in WINDOW_KERNELS)
+          and n_eval >= (1 + GRID_TIMED_CHUNKS) * (CHUNK_STEPS + 1),
+          f"grid md: each window kernel launched once per evaluation "
+          f"({n_eval}: every step and once per run())")
+    check(launches["pme_spread_energies"] == launches["pair_column_energies"],
+          f"grid md: the double spread launched once per run() "
+          f"({launches['pme_spread_energies']})")
+    ms_grid = md_checks("grid md", p, v, energy, masses, 0,
+                        3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
+    print(f"pipelines: stencil {np.median(ms_stencil):.3f} ms/step (range "
+          f"{ms_stencil[0]:.3f}-{ms_stencil[-1]:.3f}), grid "
+          f"{np.median(ms_grid):.3f} ms/step (range {ms_grid[0]:.3f}-"
+          f"{ms_grid[-1]:.3f}) ({n} atoms, {card})")
+    run_launches["rigid_grid"] = launches
+
+    # the solute box: one evaluation with energies and one force-only
+    s_prepare_g, s_apply_g, _ = fused_mod.make_fused_engine(
+        s_plan, cell_capacity=s_capacity, target_skin=DEFAULT_SKIN,
+        energies=True, pme_pipeline="grid")
+    s_st_g = s_prepare_g(s_pos, box, s_gvals, s_data)
+    reset_launches()
+    evaluation_check("solute grid evaluation", s_plan, s_capacity, s_apply_g,
+                     s_st_g, s_pos, box, s_gvals, s_data, s_pos_np, box_np,
+                     s_plan.global_defaults, pme_pipeline="grid",
+                     reference=s_reference)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"solute grid evaluation: launches {launches}")
+    check_launches("solute grid evaluation", "solute_grid", launches)
+    run_launches["solute_grid"] = launches
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         dict(name=name, path=path, route="cuda",
              source="nonbondedslicing_tpu_torch/" + KERNELS[kernel][0],
              replaces=KERNELS[kernel][1],
-             launches=path_launches[path][kernel], library_ms=None,
-             **results[name])
-        for name, kernel, path in ENTRIES]}))
+             launches=run_launches[run][kernel],
+             **{"library_ms": None, **results[name]})
+        for name, kernel, path, run in ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

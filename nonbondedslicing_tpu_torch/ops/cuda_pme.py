@@ -1,25 +1,50 @@
-"""Sliced PME reciprocal space: spread and interpolation kernels (CUDA),
-their plain twins, and the FFT pipeline around them.
+"""Sliced PME reciprocal space: the spread, interpolation, fold and extract
+kernels (CUDA), their plain twins, and the FFT pipelines around them.
 
-Port of ``nonbondedslicing_tpu/ops/pallas_pme.py``: ``make_spread_kernel``
-becomes ``pme_spread`` (``csrc/pme_spread.cu``) and ``make_interp_kernel``
-becomes ``pme_interp`` (``csrc/pme_interp.cu``).  The TPU kernels work on
-per-brick windows whose overlap-add is folded into matmul DFTs; here the
-kernels spread into and read from whole (nsub, nx, ny, nz) grids, and the
-transforms are ``torch.fft.rfftn`` / ``irfftn`` (cuFFT on the card).  Grid
-point k of an atom along an axis is (floor(t) + k) mod n, t the scaled
-fractional coordinate, as in the JAX package.
+Port of ``nonbondedslicing_tpu/ops/pallas_pme.py``.  Two pipelines compute
+the same reciprocal forces (``pme_reciprocal(pipeline=...)``); the
+transforms of both are ``torch.fft.rfftn`` / ``irfftn`` (cuFFT on the card).
 
-Slot tensors: ``slot_pos`` (n_cells, 3, C) float, ``slot_q`` (n_cells, C)
-float (0 on pad slots), ``slot_sub`` (n_cells, C) int32.  The wrappers launch
-the kernels for CUDA tensors and run the plain twins only for CPU tensors.
+``"stencil"`` (the default): ``make_spread_kernel`` becomes ``pme_spread``
+(``csrc/pme_spread.cu``) and ``make_interp_kernel`` becomes ``pme_interp``
+(``csrc/pme_interp.cu``), which spread into and read from whole
+(nsub, nx, ny, nz) grids, 125 points per atom.  Grid point k of an atom
+along an axis is (floor(t) + k) mod n, t the scaled fractional coordinate,
+as in the JAX package.
+
+``"grid"``: the JAX package's brick-window pipeline
+(``NBS_PME_PIPELINE=grid``, ``pallas_pme.py:489-513``) on brick-major slot
+tensors (``pme_bricks.cells_to_bricks``).  ``pme_spread_windows``
+(``csrc/pme_spread_windows.cu``) spreads each brick's atoms into the brick's
+own window of w = p + 6 points per axis, starting one grid point before the
+brick; ``pme_fold`` (``csrc/pme_fold.cu``, ``make_fold_kernel``) adds the
+overlapping windows into the charge grids; after the transforms
+``pme_extract`` (``csrc/pme_extract.cu``, ``make_extract_kernel``) copies
+the potential grids back into windows and ``pme_interp_windows``
+(``csrc/pme_interp_windows.cu``) reads each atom's force from its brick's
+window.  Window point u of brick b is line (b*p + u) mod n of the folded
+grid, so that grid is the true one rolled by +1 on each axis.  The whole
+pipeline stays in that shifted frame without correction: the shift is a pure
+phase of the spectrum, which cancels in |S|^2 and passes through the
+diagonal convolution unchanged.  A spline point that falls outside its
+brick's window (an atom that drifted more than one grid point past it) drops
+out, as in the JAX kernels; the skin guard of the MD step keeps atoms inside.
+No kernel of this pipeline uses atomics: its grids and forces are bitwise
+repeatable.
+
+Slot tensors: ``slot_pos`` (g, 3, C) float, ``slot_q`` (g, C) float (0 on
+pad slots), ``slot_sub`` (g, C) int32; g counts cells (cell-major) or bricks
+(brick-major).  Windows are (bx, by, bz, nsub, wx, wy, wz).  The wrappers
+launch the kernels for CUDA tensors and run the plain twins only for CPU
+tensors.
 
 Evaluations with energies spread the charges a second time, in double
-(``double=True``: splines and weights in float64, a float64 grid), and take
-the slice energies from its float64 spectra; their forces come from the
-float grid, as on every other step.  A weakly coupled slice's reciprocal
-energy is a small cross term of two large grids, which float spline
-weights blur by about as much as its dE/dlambda may err.
+(``pme_spread(..., double=True)``: splines and weights in float64, a float64
+grid), and take the slice energies from its float64 spectra under both
+pipelines; their forces come from the float pipeline, as on every other
+step.  A weakly coupled slice's reciprocal energy is a small cross term of
+two large grids, which float spline weights blur by about as much as its
+dE/dlambda may err; there is no double window kernel.
 """
 
 import numpy as np
@@ -29,11 +54,17 @@ from ..runtime.kernels import LIBRARY
 from .cuda_direct import _check
 from .geometry import recip_box_vectors
 from .pme import bsplines, pme_slice_energies_ri, rfft_energy_weights
+from .pme_bricks import brick_window, check_two_piece_windows
 
 PME_ORDER = 5
+# the window spread kernel keeps a subset's window of a brick in shared
+# memory: a block's 227 KB less its 20 KB of staged atoms
+MAX_WINDOW_BYTES = 232448 - 20480
 
 # launches of the CUDA kernels
-LAUNCHES = {"pme_spread": 0, "pme_spread_energies": 0, "pme_interp": 0}
+LAUNCHES = {"pme_spread": 0, "pme_spread_energies": 0, "pme_interp": 0,
+            "pme_spread_windows": 0, "pme_fold": 0, "pme_extract": 0,
+            "pme_interp_windows": 0}
 
 
 def _splines(slot_pos, recip, grid_shape, derivatives):
@@ -77,14 +108,10 @@ def pme_spread_plain(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
     return grid.reshape((nsub,) + tuple(grid_shape))
 
 
-def pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip):
-    """Plain torch twin of the interpolation kernel: forces (n_cells, 3, C)
-    from the combined potential grids ``phi`` (nsub, nx, ny, nz)."""
-    grid_shape = tuple(phi.shape[1:])
+def _stencil_forces(vals, th, dth, slot_q, recip, grid_shape, slot_shape):
+    """Slot forces (g, 3, C) from each slot's (M, 5, 5, 5) potential values
+    at its spline points."""
     nx, ny, nz = grid_shape
-    base, th, dth = _splines(slot_pos, recip, grid_shape, True)
-    idx = _stencil_index(base, grid_shape, slot_sub.reshape(-1).long())
-    vals = phi.reshape(-1)[idx]                          # (M, 5, 5, 5)
     tx, ty, tz = th[:, 0], th[:, 1], th[:, 2]
     dtx, dty, dtz = dth[:, 0], dth[:, 1], dth[:, 2]
     fx = torch.einsum("mijk,mi,mj,mk->m", vals, dtx, ty, tz) * nx
@@ -96,8 +123,139 @@ def pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip):
         -q * (fx * recip[1, 0] + fy * recip[1, 1]),
         -q * (fx * recip[2, 0] + fy * recip[2, 1] + fz * recip[2, 2])],
         dim=-1)
-    g, _, C = slot_pos.shape
+    g, _, C = slot_shape
     return f.reshape(g, C, 3).transpose(1, 2).contiguous()
+
+
+def pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip):
+    """Plain torch twin of the interpolation kernel: forces (n_cells, 3, C)
+    from the combined potential grids ``phi`` (nsub, nx, ny, nz)."""
+    grid_shape = tuple(phi.shape[1:])
+    base, th, dth = _splines(slot_pos, recip, grid_shape, True)
+    idx = _stencil_index(base, grid_shape, slot_sub.reshape(-1).long())
+    vals = phi.reshape(-1)[idx]                          # (M, 5, 5, 5)
+    return _stencil_forces(vals, th, dth, slot_q, recip, grid_shape,
+                           slot_pos.shape)
+
+
+# ------------------------------------------------- the window pipeline
+
+def _window_shapes(W):
+    """(bricks, nsub, (wx, wy, wz), (px, py, pz), grid_shape) of windows
+    (bx, by, bz, nsub, wx, wy, wz); raises ValueError unless w <= 2p."""
+    if W.dim() != 7:
+        raise ValueError("windows must be (bx, by, bz, nsub, wx, wy, wz), "
+                         f"got {tuple(W.shape)}")
+    bricks, nsub, w = tuple(W.shape[:3]), W.shape[3], tuple(W.shape[4:])
+    p = tuple(wa - PME_ORDER - 1 for wa in w)
+    grid_shape = tuple(b * pa for b, pa in zip(bricks, p))
+    if min(p) < 1:
+        raise ValueError(f"windows {w} are narrower than the spline stencil")
+    check_two_piece_windows(grid_shape, bricks, PME_ORDER)
+    return bricks, nsub, w, p, grid_shape
+
+
+def _window_index(base, slot_sub, grid_shape, bricks, nsub):
+    """Flat indices (M, 5, 5, 5) of every slot's spline points in the
+    windows (bricks, nsub, wx, wy, wz) of brick-major slots, and the mask of
+    the points inside their brick's window.  Spline point k lies at window
+    row rel + k, rel = (base - (b*p - 1)) mod n; rows >= w drop out (their
+    index is clamped into range)."""
+    (px, wx), (py, wy), (pz, wz) = brick_window(grid_shape, bricks, PME_ORDER)
+    dev = base.device
+    gb = bricks[0] * bricks[1] * bricks[2]
+    lin = torch.arange(gb, device=dev).repeat_interleave(base.shape[0] // gb)
+    coord = torch.stack([lin // (bricks[1] * bricks[2]),
+                         (lin // bricks[2]) % bricks[1], lin % bricks[2]], 1)
+    p = torch.as_tensor((px, py, pz), device=dev)
+    n = torch.as_tensor(grid_shape, device=dev)
+    rel = (base - (coord * p - 1)) % n                   # (M, 3) in [0, n)
+    k = torch.arange(PME_ORDER, device=dev)
+    rows, inside = [], []
+    for a, w in enumerate((wx, wy, wz)):
+        r = rel[:, a:a + 1] + k
+        inside.append(r < w)
+        rows.append(torch.clamp(r, max=w - 1))
+    idx = ((((lin * nsub + slot_sub.reshape(-1).long())[:, None, None, None]
+             * wx + rows[0][:, :, None, None]) * wy
+            + rows[1][:, None, :, None]) * wz + rows[2][:, None, None, :])
+    mask = (inside[0][:, :, None, None] & inside[1][:, None, :, None]
+            & inside[2][:, None, None, :])
+    return idx, mask
+
+
+def pme_spread_windows_plain(slot_pos, slot_q, slot_sub, recip, grid_shape,
+                             bricks, nsub):
+    """Plain torch twin of the window spread kernel: charge windows
+    (bx, by, bz, nsub, wx, wy, wz) from brick-major slots."""
+    check_two_piece_windows(grid_shape, bricks, PME_ORDER)
+    (_, wx), (_, wy), (_, wz) = brick_window(grid_shape, bricks, PME_ORDER)
+    base, th, _ = _splines(slot_pos, recip, grid_shape, False)
+    q = slot_q.reshape(-1)
+    vals = (q[:, None, None, None] * th[:, 0, :, None, None]
+            * th[:, 1, None, :, None] * th[:, 2, None, None, :])
+    idx, mask = _window_index(base, slot_sub, grid_shape, bricks, nsub)
+    W = torch.zeros(slot_pos.shape[0] * nsub * wx * wy * wz,
+                    dtype=slot_pos.dtype, device=slot_pos.device)
+    W.index_add_(0, idx.reshape(-1),
+                 torch.where(mask, vals, vals.new_zeros(())).reshape(-1))
+    return W.reshape(tuple(bricks) + (nsub, wx, wy, wz))
+
+
+def pme_interp_windows_plain(W_phi, slot_pos, slot_q, slot_sub, recip):
+    """Plain torch twin of the window interpolation kernel: forces
+    (g_bricks, 3, C_brick) of brick-major slots from the combined potential
+    windows ``W_phi`` (bx, by, bz, nsub, wx, wy, wz)."""
+    bricks, nsub, _, _, grid_shape = _window_shapes(W_phi)
+    base, th, dth = _splines(slot_pos, recip, grid_shape, True)
+    idx, mask = _window_index(base, slot_sub, grid_shape, bricks, nsub)
+    vals = W_phi.reshape(-1)[idx]
+    vals = torch.where(mask, vals, vals.new_zeros(()))
+    return _stencil_forces(vals, th, dth, slot_q, recip, grid_shape,
+                           slot_pos.shape)
+
+
+def pme_fold_plain(W):
+    """Plain torch twin of the fold kernel: overlap-add of the windows into
+    the +1-shifted grids (nsub, nx, ny, nz).  Each block of p points takes
+    at most two bricks' pieces per axis, summed in the order of the kernel
+    (x outermost, the brick's own piece first)."""
+    bricks, nsub, w, p, grid_shape = _window_shapes(W)
+    Wg = W.permute(3, 0, 1, 2, 4, 5, 6)                  # (nsub, b..., w...)
+    acc = None
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                lo = [d * pa for d, pa in zip((dx, dy, dz), p)]
+                hi = [min(l + pa, wa) for l, pa, wa in zip(lo, p, w)]
+                piece = Wg[..., lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+                pad = []
+                for a in (2, 1, 0):
+                    pad += [0, p[a] - (hi[a] - lo[a])]
+                piece = torch.roll(torch.nn.functional.pad(piece, pad),
+                                   (dx, dy, dz), dims=(1, 2, 3))
+                acc = piece if acc is None else acc + piece
+    # (nsub, bx, by, bz, px, py, pz) -> grid-major
+    return acc.permute(0, 1, 4, 2, 5, 3, 6).reshape((nsub,) + grid_shape)
+
+
+def pme_extract_plain(grid, bricks):
+    """Plain torch twin of the extract kernel: windows
+    (bx, by, bz, nsub, wx, wy, wz) copied from the +1-shifted grids
+    (nsub, nx, ny, nz); window point u of brick b is line (b*p + u) mod n."""
+    grid_shape = tuple(grid.shape[1:])
+    check_two_piece_windows(grid_shape, bricks, PME_ORDER)
+    lines = []
+    for n, b, (p, w) in zip(grid_shape, bricks,
+                            brick_window(grid_shape, bricks, PME_ORDER)):
+        lines.append((torch.arange(b, device=grid.device)[:, None] * p
+                      + torch.arange(w, device=grid.device)[None, :]) % n)
+    ix, iy, iz = lines                                   # (b, w) each
+    # (nsub, bx, wx, by, wy, bz, wz)
+    W = grid[:, ix[:, :, None, None, None, None],
+             iy[None, None, :, :, None, None],
+             iz[None, None, None, None, :, :]]
+    return W.permute(1, 3, 5, 0, 2, 4, 6).contiguous()
 
 
 def _check_slots(slot_pos, slot_q, slot_sub, dev):
@@ -157,19 +315,144 @@ def pme_interp(phi, slot_pos, slot_q, slot_sub, recip):
     return forces
 
 
+def _check_windows(name, W, dev):
+    _check(name, W, W.shape, torch.float32, dev)
+    return _window_shapes(W)
+
+
+def pme_spread_windows(slot_pos, slot_q, slot_sub, recip, grid_shape, bricks,
+                       nsub):
+    """Charge windows (bx, by, bz, nsub, wx, wy, wz) of brick-major slots.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel (one
+    block per brick, no atomics: bitwise repeatable)."""
+    dev = slot_pos.device
+    if dev.type == "cpu":
+        return pme_spread_windows_plain(slot_pos, slot_q, slot_sub, recip,
+                                        grid_shape, bricks, nsub)
+    if dev.type != "cuda":
+        raise ValueError(f"pme_spread_windows: unsupported device {dev}")
+    check_two_piece_windows(grid_shape, bricks, PME_ORDER)
+    g, C = _check_slots(slot_pos, slot_q, slot_sub, dev)
+    if g != bricks[0] * bricks[1] * bricks[2]:
+        raise ValueError(f"pme_spread_windows: {g} slot groups for bricks "
+                         f"{tuple(bricks)}")
+    _check("recip", recip, (3, 3), torch.float32, dev)
+    (px, wx), (py, wy), (pz, wz) = brick_window(grid_shape, bricks, PME_ORDER)
+    if 4 * wx * wy * wz > MAX_WINDOW_BYTES:
+        raise ValueError(
+            f"pme_spread_windows: a window of {(wx, wy, wz)} points does not "
+            f"fit a block's shared memory; use more bricks or the default "
+            f"pipeline (pme_pipeline=\"stencil\")")
+    W = torch.empty(tuple(bricks) + (nsub, wx, wy, wz), dtype=torch.float32,
+                    device=dev)
+    LIBRARY.call("nbs_pme_spread_windows", slot_pos.data_ptr(),
+                 slot_q.data_ptr(), slot_sub.data_ptr(), recip.data_ptr(),
+                 W.data_ptr(), C, nsub, *bricks, px, py, pz,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pme_spread_windows"] += 1
+    return W
+
+
+def pme_fold(W):
+    """+1-shifted charge grids (nsub, nx, ny, nz) from windows
+    (bx, by, bz, nsub, wx, wy, wz); the true grids are ``roll(., -1)`` on
+    each axis.  Raises ValueError unless w <= 2p.  CPU tensors take the plain
+    twin; CUDA tensors launch the kernel, whose sums equal the twin's to the
+    bit."""
+    dev = W.device
+    if dev.type == "cpu":
+        return pme_fold_plain(W)
+    if dev.type != "cuda":
+        raise ValueError(f"pme_fold: unsupported device {dev}")
+    bricks, nsub, _, p, grid_shape = _check_windows("W", W, dev)
+    grid = torch.empty((nsub,) + grid_shape, dtype=torch.float32, device=dev)
+    LIBRARY.call("nbs_pme_fold", W.data_ptr(), grid.data_ptr(), nsub,
+                 *bricks, *p, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pme_fold"] += 1
+    return grid
+
+
+def pme_extract(grid, bricks):
+    """Windows (bx, by, bz, nsub, wx, wy, wz) of the +1-shifted grids
+    (nsub, nx, ny, nz), the inverse layout of :func:`pme_fold`.  CPU tensors
+    take the plain twin; CUDA tensors launch the kernel (a pure copy)."""
+    dev = grid.device
+    if dev.type == "cpu":
+        return pme_extract_plain(grid, bricks)
+    if dev.type != "cuda":
+        raise ValueError(f"pme_extract: unsupported device {dev}")
+    _check("grid", grid, grid.shape, torch.float32, dev)
+    if grid.dim() != 4:
+        raise ValueError(f"grid must be (nsub, nx, ny, nz), got {grid.shape}")
+    nsub, grid_shape = grid.shape[0], tuple(grid.shape[1:])
+    check_two_piece_windows(grid_shape, bricks, PME_ORDER)
+    (px, wx), (py, wy), (pz, wz) = brick_window(grid_shape, bricks, PME_ORDER)
+    W = torch.empty(tuple(bricks) + (nsub, wx, wy, wz), dtype=torch.float32,
+                    device=dev)
+    LIBRARY.call("nbs_pme_extract", grid.data_ptr(), W.data_ptr(), nsub,
+                 *bricks, px, py, pz,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pme_extract"] += 1
+    return W
+
+
+def pme_interp_windows(W_phi, slot_pos, slot_q, slot_sub, recip):
+    """Forces (g_bricks, 3, C_brick) of brick-major slots from the combined
+    potential windows ``W_phi`` (bx, by, bz, nsub, wx, wy, wz).  CPU tensors
+    take the plain twin; CUDA tensors launch the kernel."""
+    dev = slot_pos.device
+    if dev.type == "cpu":
+        return pme_interp_windows_plain(W_phi, slot_pos, slot_q, slot_sub,
+                                        recip)
+    if dev.type != "cuda":
+        raise ValueError(f"pme_interp_windows: unsupported device {dev}")
+    bricks, nsub, _, p, _ = _check_windows("W_phi", W_phi, dev)
+    g, C = _check_slots(slot_pos, slot_q, slot_sub, dev)
+    if g != bricks[0] * bricks[1] * bricks[2]:
+        raise ValueError(f"pme_interp_windows: {g} slot groups for bricks "
+                         f"{bricks}")
+    _check("recip", recip, (3, 3), torch.float32, dev)
+    forces = torch.empty((g, 3, C), dtype=torch.float32, device=dev)
+    LIBRARY.call("nbs_pme_interp_windows", W_phi.data_ptr(),
+                 slot_pos.data_ptr(), slot_q.data_ptr(), slot_sub.data_ptr(),
+                 recip.data_ptr(), forces.data_ptr(), C, nsub, *bricks, *p,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["pme_interp_windows"] += 1
+    return forces
+
+
+PIPELINES = ("stencil", "grid")
+
+
 def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
-                   eterm, slice_subset_pairs, energies=True):
+                   eterm, slice_subset_pairs, energies=True,
+                   pipeline="stencil", bricks=None):
     """Sliced PME for slot-ordered atoms.
 
     ``eterm`` is the z-half convolution kernel (nx, ny, nz//2+1) in the
     working dtype (``pme.coulomb_eterm_np``); ``lam_nn`` (nsub, nsub) the
-    Coulomb lambda of each subset pair.  Returns (slice_energies (S,)
-    float64 — zeros unless ``energies`` — and slot forces (n_cells, 3, C)).
+    Coulomb lambda of each subset pair.  ``pipeline`` is ``"stencil"`` (any
+    slot grouping) or ``"grid"``, the window pipeline, which takes
+    brick-major slot tensors and their ``bricks`` (see the module
+    docstring) and raises ValueError unless every brick has at least 6 grid
+    points per axis.  Returns (slice_energies (S,) float64 (zeros unless
+    ``energies``) and slot forces (g, 3, C) in the grouping given).
     """
+    if pipeline not in PIPELINES:
+        raise ValueError(f"pipeline must be one of {PIPELINES}, got "
+                         f"{pipeline!r}")
     nsub = lam_nn.shape[0]
     dev = slot_pos.device
     recip = recip_box_vectors(box)
-    grid = pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub)
+    if pipeline == "grid":
+        if bricks is None:
+            raise ValueError("pipeline=\"grid\" needs the bricks of its "
+                             "brick-major slot tensors")
+        # the +1-shifted frame from here to the interpolation
+        grid = pme_fold(pme_spread_windows(slot_pos, slot_q, slot_sub, recip,
+                                           grid_shape, bricks, nsub))
+    else:
+        grid = pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub)
     spec = torch.fft.rfftn(grid, dim=(1, 2, 3))
     n_slices = np.asarray(slice_subset_pairs).shape[0]
     if energies:
@@ -190,6 +473,10 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                         spec * eterm)
     # unnormalized inverse: phi(r) = sum_k eterm * S(k) e^{+ik.r}
     phi = torch.fft.irfftn(comb, s=tuple(grid_shape), dim=(1, 2, 3),
-                           norm="forward")
-    forces = pme_interp(phi.contiguous(), slot_pos, slot_q, slot_sub, recip)
+                           norm="forward").contiguous()
+    if pipeline == "grid":
+        forces = pme_interp_windows(pme_extract(phi, bricks), slot_pos,
+                                    slot_q, slot_sub, recip)
+    else:
+        forces = pme_interp(phi, slot_pos, slot_q, slot_sub, recip)
     return slice_e, forces

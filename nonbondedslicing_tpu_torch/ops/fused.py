@@ -8,9 +8,10 @@ reuse it for K steps under a skin guard.
 
 ``apply`` does the per-step work: one gather of positions into slot order,
 the pair kernel (``ops/cuda_direct.py``), sliced PME through the spread and
-interpolation kernels (``ops/cuda_pme.py``), self/plasma energies, the
-water-triangle exclusion corrections, 1-4 exceptions, the dispersion
-correction and one slot->atom force unsort.  It also returns ``aux``: the
+interpolation kernels of the chosen pipeline (``ops/cuda_pme.py``: whole
+grids, or brick windows with ``pme_pipeline="grid"``), self/plasma
+energies, the water-triangle exclusion corrections, 1-4 exceptions, the
+dispersion correction and one slot->atom force unsort.  It also returns ``aux``: the
 cell-capacity overflow count and the squared max displacement since
 ``prepare``.
 
@@ -46,8 +47,9 @@ from .geometry import box_volume, recip_box_vectors
 def _brick_counts(counts, capacity=None, raw_grid=None):
     """PME brick counts per axis, as the JAX package chooses them: at most
     ~6 bricks per axis, one brick per cell when a brick's interpolation
-    plane would exceed ~4 MB.  The port's kernels need no bricks; the
-    bricks only fix the cell-aligned PME grid size."""
+    plane would exceed ~4 MB.  The bricks fix the cell-aligned PME grid
+    size of both pipelines, and the window pipeline
+    (``pme_pipeline="grid"``) spreads and interpolates brick by brick."""
     bricks = []
     for nc in counts:
         divs = [d for d in range(1, nc + 1) if nc % d == 0 and d <= 6]
@@ -95,7 +97,7 @@ def fused_config(plan, cell_capacity=None, target_skin=0.0):
 
 
 def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
-                      energies=True):
+                      energies=True, pme_pipeline="stencil"):
     """Build (prepare, apply, config) for the fused engine, or None when the
     plan has no cell list (non-periodic or too small a box).  ``config`` is
     :func:`fused_config`'s dict plus ``"pair"``, the pair kernel's
@@ -109,6 +111,15 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     pair kernel skips its energies and ``apply`` returns None for the slice
     energies.  The PME convolution kernel is computed once per device and
     dtype from ``plan.box0``.
+
+    ``pme_pipeline`` chooses how the reciprocal forces are computed
+    (``ops/cuda_pme.py``): ``"stencil"`` spreads into and interpolates from
+    whole grids; ``"grid"`` is the brick-window pipeline (spread windows,
+    fold, transforms, extract, interpolate from windows) on slots regrouped
+    brick-major with ``config["bricks"]``.  It needs a PME plan and at
+    least 6 PME grid points per brick and axis, and raises ValueError
+    otherwise.  It is kept for parity with the JAX package's
+    ``NBS_PME_PIPELINE=grid``; ``"stencil"`` is the recommended setting.
     """
     method = plan.method
     if method == NonbondedForce.Ewald:
@@ -121,6 +132,16 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     if cfg is None:
         return None
     is_pme = method == NonbondedForce.PME
+    if pme_pipeline not in cuda_pme.PIPELINES:
+        raise ValueError(f"pme_pipeline must be one of {cuda_pme.PIPELINES}, "
+                         f"got {pme_pipeline!r}")
+    use_windows = pme_pipeline == "grid"
+    if use_windows and not is_pme:
+        raise ValueError("pme_pipeline=\"grid\" needs a PME plan: this plan "
+                         "has no reciprocal part to run through it")
+    bricks = cfg["bricks"]
+    if use_windows:
+        pme_bricks.check_two_piece_windows(cfg["pme_grid"], bricks)
     # the min-image cell kernel with fused exclusion corrections
     use_cell = is_pme and (plan.exceptions_periodic
                            or bonded.triangle_exclusions(
@@ -224,6 +245,12 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 (n_cells, 2, capacity))], dim=1),
             pos0=positions, pos0w=pos0w, charge=charge,
             overflow=overflow)
+        if use_windows:
+            # brick-major charge and subset for the window kernels
+            state["slot_q_b"] = pme_bricks.cells_to_bricks(
+                state["slot_q"][:, None], counts, bricks)[:, 0].contiguous()
+            state["slot_sub_b"] = pme_bricks.cells_to_bricks(
+                slot_sub[:, None], counts, bricks)[:, 0].contiguous()
         if is_pme and not use_cell:
             sl_tab = _indices(dev)["sl_tab"]
             sub3 = subsets.reshape(n // 3, 3)
@@ -295,10 +322,20 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                                     device=dev)
                 slice_e[:, COUL] += (w * q_sub[slice_pairs[:, 0]]
                                      * q_sub[slice_pairs[:, 1]] * factor)
-            e_k, f_k = cuda_pme.pme_reciprocal(
-                slot_pos, state["slot_q"], state["slot_sub"], box, lam_c_nn,
-                grid_shape=cfg["pme_grid"], eterm=_eterm(box),
-                slice_subset_pairs=slice_pairs, energies=energies)
+            pme_args = dict(grid_shape=cfg["pme_grid"], eterm=_eterm(box),
+                            slice_subset_pairs=slice_pairs, energies=energies)
+            if use_windows:
+                e_k, f_kb = cuda_pme.pme_reciprocal(
+                    pme_bricks.cells_to_bricks(slot_pos, counts,
+                                               bricks).contiguous(),
+                    state["slot_q_b"], state["slot_sub_b"], box, lam_c_nn,
+                    pipeline="grid", bricks=bricks, **pme_args)
+                f_k = pme_bricks.bricks_to_cells(
+                    f_kb.transpose(1, 2), counts, bricks).transpose(1, 2)
+            else:
+                e_k, f_k = cuda_pme.pme_reciprocal(
+                    slot_pos, state["slot_q"], state["slot_sub"], box,
+                    lam_c_nn, **pme_args)
             slot_f = slot_f + f_k
             if energies:
                 slice_e[:, COUL] += e_k

@@ -63,7 +63,7 @@ def _bond_forces_fn(bonds, n):
 
 def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                  reuse_steps=None, constraints=None, target_skin=DEFAULT_SKIN,
-                 mixed_precision=False, bonds=None):
+                 mixed_precision=False, bonds=None, pme_pipeline="stencil"):
     """Returns run(pos, vel, box, gvals, data, n_steps) -> (pos, vel, energy).
 
     Leapfrog Verlet: v += dt*F/m; x += dt*v, with constraint projections
@@ -77,6 +77,10 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     ``energy`` as a float64 0-d tensor.  The energy is the nonbonded
     energy, as in the JAX package.
 
+    ``pme_pipeline`` is ``"stencil"`` (whole-grid spread and interpolation)
+    or ``"grid"`` (the brick-window pipeline), for every evaluation of the
+    run; see ``ops.fused.make_fused_engine``.
+
     ``reuse_steps`` (K) sets how many steps share one slot rebuild; None
     picks K from the skin and the lightest mass.  Raises OpenMMException
     after the run if the cell capacity overflowed or an atom moved more than
@@ -86,15 +90,16 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         raise NotImplementedError(
             "make_md_step: mixed precision is not ported yet (ROADMAP A7)")
     eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
-                                      target_skin=target_skin, energies=False)
+                                      target_skin=target_skin, energies=False,
+                                      pme_pipeline=pme_pipeline)
     if eng is None:
         raise NotImplementedError(
             "make_md_step: systems without a cell list need the per-step "
             "rebuild path of the generic engine (ROADMAP A9)")
     prepare, apply, cfg = eng
     _, apply_full, _ = fused_mod.make_fused_engine(
-        plan, cell_capacity=cell_capacity,
-        target_skin=target_skin, energies=True)
+        plan, cell_capacity=cell_capacity, target_skin=target_skin,
+        energies=True, pme_pipeline=pme_pipeline)
     n = plan.num_particles
     m_np = np.asarray(masses, dtype=np.float64)
     inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
@@ -179,6 +184,7 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         return pos, vel, energy
 
     run.config = dict(reuse_steps=K, skin=skin, mixed_precision=False,
+                      pme_pipeline=pme_pipeline,
                       **{k: v for k, v in cfg.items()
                          if k in ("counts", "capacity", "pme_grid")})
     return run

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's MD step goes, on one NVIDIA GPU.
 
-    python3 profile_md.py [--solute]
+    python3 profile_md.py [--solute] [--pipeline grid]
 
 Builds the benchmark system of port_systems.py (23,289 atoms, PME, SETTLE,
 2 fs) from extras/bench_state_rigid.npz, or with ``--solute`` its solute
 system (the 12-site chain in that box, harmonic bonds, the gather
-constrainer for the waters, the min-image cell pair kernel), warms
+constrainer for the waters, the min-image cell pair kernel), with the
+default PME pipeline or with ``--pipeline grid`` the brick-window one, warms
 make_md_step up with one 200-step chunk, then:
 
 1. times five unprofiled 200-step chunks (torch.cuda.synchronize() around
@@ -55,6 +56,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--solute", action="store_true",
                         help="profile the solute path (the chain in water)")
+    parser.add_argument("--pipeline", choices=("stencil", "grid"),
+                        default="stencil",
+                        help="the PME pipeline (make_md_step's pme_pipeline)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -93,7 +97,7 @@ def main():
     capacity = max(8, int(np.ceil((occ + 16) / 4) * 4))
     run = make_md_step(plan, masses, dt=DT_PS, dtype=f32,
                        cell_capacity=capacity, constraints=constraints,
-                       bonds=bonds)
+                       bonds=bonds, pme_pipeline=args.pipeline)
     data = engine_mod.plan_data(plan, device=dev, dtype=f32)
     box = torch.as_tensor(np.diag([box_len] * 3), device=dev).to(f32)
     gvals = torch.as_tensor(plan.global_defaults, device=dev).to(f32)

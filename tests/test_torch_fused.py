@@ -1,7 +1,8 @@
 """Port fused engine (prepare/apply) vs the JAX package's fused engine
 (Pallas kernels in interpret mode) and its all-pairs oracle: the column
 kernel path (water triangles, reaction field) and the min-image cell kernel
-path (dimer exclusions under PME)."""
+path (dimer exclusions under PME), each also through the brick-window PME
+pipeline (``pme_pipeline="grid"``) on both sides."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,6 +96,72 @@ def test_fused_apply_matches_jax_fused(case, energies):
                                    atol=2e-4 * (np.abs(e_j).max() + 1.0))
     else:
         assert e_t is None
+
+
+@pytest.mark.parametrize("energies", [True, False])
+@pytest.mark.parametrize("case", ["water_pme", "pairs_pme"])
+def test_fused_apply_grid_pipeline_matches_jax_fused(monkeypatch, case,
+                                                     energies):
+    """The brick-window PME pipeline through the fused engine, against the
+    JAX fused engine under NBS_PME_PIPELINE=grid (its fold and extract
+    kernels in interpret mode), at the 2e-4 budget of the default pipeline;
+    and against the port's default pipeline, whose slice energies it shares
+    (the double whole-grid spread) and whose forces it matches to 2e-5."""
+    monkeypatch.setenv("NBS_PME_PIPELINE", "grid")
+    if case == "water_pme":
+        plan_j, plan_t, positions = both_plans(water_system)
+    else:
+        plan_j, plan_t, positions = both_plans(
+            pair_system, nbs.SlicedNonbondedForce.PME, n_mol=100, box=3.0,
+            extras=True)
+    kw = dict(cell_capacity=32)
+    inputs = _port_inputs(plan_j, positions, torch.float32)
+    e_t, f_t, aux, cfg = _port_eval(plan_t, inputs, energies,
+                                    pme_pipeline="grid", **kw)
+    assert int(aux["overflow"]) == 0
+    assert all(p >= 6 for p, _ in tfused.pme_bricks.brick_window(
+        cfg["pme_grid"], cfg["bricks"]))
+    prep, app, _ = jfused.make_fused_engine(plan_j, interpret=True,
+                                            energies=energies, **kw)
+    pos, box, gvals, data = _jax_inputs(plan_j, positions, jnp.float32)
+    e_j, f_j, _ = app(pos, box, gvals, data, prep(pos, box, gvals, data))
+    f_j = np.asarray(f_j)
+    scale = np.abs(f_j).max() + 1.0
+    np.testing.assert_allclose(f_t.numpy(), f_j, atol=2e-4 * scale)
+    e_s, f_s, _, _ = _port_eval(plan_t, inputs, energies, **kw)
+    np.testing.assert_allclose(f_t.numpy(), f_s.numpy(), atol=2e-5 * scale)
+    if energies:
+        e_j = np.asarray(e_j)
+        np.testing.assert_allclose(e_t.numpy(), e_j,
+                                   atol=2e-4 * (np.abs(e_j).max() + 1.0))
+        np.testing.assert_array_equal(e_t.numpy(), e_s.numpy())
+    else:
+        assert e_t is None
+
+
+def test_fused_grid_pipeline_refuses_narrow_bricks():
+    """5 grid points per brick (w = 11 > 2p): the JAX package falls back to
+    its "blocked" pipeline, the port raises and names the default one."""
+    from nonbondedslicing_tpu_torch.ops import plan as tplan
+    from nonbondedslicing_tpu_torch.utils.ewald_params import ewald_alpha
+    system, force, _ = water_system(nbt)
+    force.setPMEParameters(ewald_alpha(0.9, 5e-4), 25, 25, 25)
+    plan_t = tplan.build_plan(force, system)
+    with pytest.raises(ValueError, match="stencil"):
+        tfused.make_fused_engine(plan_t, pme_pipeline="grid")
+    with pytest.raises(ValueError, match="pme_pipeline must be one of"):
+        tfused.make_fused_engine(plan_t, pme_pipeline="windows")
+    assert tfused.make_fused_engine(plan_t) is not None
+
+
+def test_fused_grid_pipeline_refuses_plan_without_pme():
+    """A reaction-field plan has no reciprocal part: asking for the window
+    pipeline raises rather than running the default one silently."""
+    _, plan_t, _ = both_plans(
+        pair_system, nbs.SlicedNonbondedForce.CutoffPeriodic, switching=True)
+    with pytest.raises(ValueError, match="needs a PME plan"):
+        tfused.make_fused_engine(plan_t, pme_pipeline="grid")
+    assert tfused.make_fused_engine(plan_t) is not None
 
 
 def test_fused_f64_matches_all_pairs_oracle():

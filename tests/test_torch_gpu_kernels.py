@@ -227,3 +227,138 @@ def test_fused_engine_on_card_matches_cpu_f64(cuda):
     assert abs(E_g - E_c) <= 1e-5 * abs(E_c)
     f_c_max = float(f_c.abs().max())
     assert float((f_g.cpu().double() - f_c).abs().max()) <= 5e-5 * f_c_max
+
+
+# ------------------------------------------------ the window PME pipeline
+
+# (cells, bricks, grid, nsub, atoms, cell capacity): one cell per brick; 8
+# cells per brick (f = 2: 640 slots a brick, more than one block's threads
+# and than one staged chunk of the spread kernel); more subsets than one
+# pass of the spread kernel holds in shared memory (w = 15: 15 subsets)
+WINDOW_CASES = {
+    "one_cell": ((3, 3, 3), (3, 3, 3), (27, 27, 27), 3, 2000, 128),
+    "eight_cells": ((4, 4, 4), (2, 2, 2), (24, 24, 24), 2, 3000, 80),
+    "two_passes": ((3, 3, 3), (3, 3, 3), (27, 27, 27), 17, 2000, 128),
+}
+
+
+def _window_slots(case, dev, seed=12):
+    """Brick-major slot tensors of random charges in a 4.2 nm box, pad
+    slots far outside it as the fused engine places them."""
+    from nonbondedslicing_tpu_torch.ops import neighbors, pme_bricks
+    cells, bricks, grid, nsub, n, capacity = WINDOW_CASES[case]
+    rng = np.random.default_rng(seed)
+    box = torch.eye(3, device=dev) * 4.2
+    pos = torch.as_tensor(rng.random((n, 3)) * 4.2, device=dev).float()
+    q = torch.as_tensor(rng.normal(size=n), device=dev).float()
+    sub = torch.as_tensor(rng.integers(0, nsub, n), device=dev)
+    table, ov = neighbors.build_occupancy(
+        neighbors.cell_ids(pos, box, cells), n, cells, capacity)
+    assert int(ov) == 0
+    slots = table.reshape(-1).long()
+    g = cells[0] * cells[1] * cells[2]
+    pad = torch.where(slots == n, 5000.0 + 64.0 * torch.arange(
+        slots.shape[0], device=dev), 0.0).reshape(g, 1, capacity)
+    slot_pos = (torch.cat([pos, pos.new_zeros((1, 3))])[slots]
+                .reshape(g, capacity, 3).transpose(1, 2) + pad)
+    slot_q = torch.cat([q, q.new_zeros(1)])[slots].reshape(g, 1, capacity)
+    slot_sub = torch.cat([sub, sub.new_zeros(1)])[slots].reshape(
+        g, 1, capacity).to(torch.int32)
+    to_b = lambda x: pme_bricks.cells_to_bricks(x, cells, bricks).contiguous()
+    return dict(pos=to_b(slot_pos), q=to_b(slot_q)[:, 0].contiguous(),
+                sub=to_b(slot_sub)[:, 0].contiguous(),
+                recip=recip_box_vectors(box), bricks=bricks, grid=grid,
+                nsub=nsub)
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_kernels_match_plain(cuda, case):
+    s = _window_slots(case, cuda)
+    args = (s["pos"], s["q"], s["sub"], s["recip"], s["grid"], s["bricks"],
+            s["nsub"])
+    before = dict(cuda_pme.LAUNCHES)
+    W_k = cuda_pme.pme_spread_windows(*args)
+    W_p = cuda_pme.pme_spread_windows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(W_k).all()
+    assert float((W_k - W_p).abs().max()) <= 2e-5 * float(W_p.abs().max())
+    # one owner per window line, atoms in slot order: bitwise repeatable
+    assert torch.equal(W_k, cuda_pme.pme_spread_windows(*args))
+
+    grid_k = cuda_pme.pme_fold(W_k)
+    assert torch.equal(grid_k, cuda_pme.pme_fold_plain(W_k))
+    # the two spread designs give the same grid, up to the shift
+    grid_s = cuda_pme.pme_spread(s["pos"], s["q"], s["sub"], s["recip"],
+                                 s["grid"], s["nsub"])
+    assert float((torch.roll(grid_k, (-1, -1, -1), (1, 2, 3)) - grid_s)
+                 .abs().max()) <= 2e-5 * float(grid_s.abs().max())
+
+    phi = torch.fft.irfftn(
+        torch.fft.rfftn(grid_k, dim=(1, 2, 3)) * torch.exp(
+            -0.1 * torch.arange(s["grid"][2] // 2 + 1, device=cuda) ** 2),
+        s=s["grid"], dim=(1, 2, 3)).contiguous()
+    W_phi = cuda_pme.pme_extract(phi, s["bricks"])
+    assert torch.equal(W_phi, cuda_pme.pme_extract_plain(phi, s["bricks"]))
+    f_args = (W_phi, s["pos"], s["q"], s["sub"], s["recip"])
+    f_k = cuda_pme.pme_interp_windows(*f_args)
+    f_p = cuda_pme.pme_interp_windows_plain(*f_args)
+    torch.cuda.synchronize()
+    assert float(f_p.abs().max()) > 0.0
+    assert float((f_k - f_p).abs().max()) <= 2e-5 * (float(f_p.abs().max())
+                                                     + 1.0)
+    for name, n in (("pme_spread_windows", 2), ("pme_fold", 1),
+                    ("pme_extract", 1), ("pme_interp_windows", 1)):
+        assert cuda_pme.LAUNCHES[name] == before[name] + n
+
+
+def test_window_kernels_drop_points_outside_the_window(cuda):
+    """Atoms moved 2.5 grid spacings after the slot table was built: the
+    kernels drop the same stencil points as their twins."""
+    s = _window_slots("one_cell", cuda)
+    pos = (s["pos"] + 2.5 * 4.2 / 27).contiguous()
+    args = (pos, s["q"], s["sub"], s["recip"], s["grid"], s["bricks"],
+            s["nsub"])
+    W_k = cuda_pme.pme_spread_windows(*args)
+    W_p = cuda_pme.pme_spread_windows_plain(*args)
+    assert abs(float(W_p.sum()) - float(s["q"].sum())) > 1e-2
+    assert float((W_k - W_p).abs().max()) <= 2e-5 * float(W_p.abs().max())
+    W_phi = torch.randn_like(W_k)
+    f_k = cuda_pme.pme_interp_windows(W_phi, pos, s["q"], s["sub"],
+                                      s["recip"])
+    f_p = cuda_pme.pme_interp_windows_plain(W_phi, pos, s["q"], s["sub"],
+                                            s["recip"])
+    assert float((f_k - f_p).abs().max()) <= 2e-5 * (float(f_p.abs().max())
+                                                     + 1.0)
+
+
+def test_window_kernels_refuse_wide_windows(cuda):
+    """w > 2p raises on CUDA tensors as on CPU tensors; nothing falls back."""
+    with pytest.raises(ValueError, match="stencil"):
+        cuda_pme.pme_fold(torch.zeros((2, 2, 2, 2, 10, 10, 10), device=cuda))
+    with pytest.raises(ValueError, match="stencil"):
+        cuda_pme.pme_extract(torch.zeros((2, 8, 8, 8), device=cuda),
+                             (2, 2, 2))
+
+
+def test_grid_pipeline_on_card_matches_stencil_pipeline(cuda):
+    """The fused engine through the window pipeline on the card: forces
+    within 2e-5 * (max|F| + 1) of the default pipeline's, the same slice
+    energies (both from the double whole-grid spread), bitwise repeatable."""
+    plan, positions = _water()
+    out = {}
+    for pipeline in ("stencil", "grid"):
+        prep, app, _ = tfused.make_fused_engine(plan, energies=True,
+                                                pme_pipeline=pipeline)
+        data = tengine.plan_data(plan, device=cuda, dtype=torch.float32)
+        pos = torch.as_tensor(positions, device=cuda).float()
+        box = torch.as_tensor(np.asarray(plan.box0), device=cuda).float()
+        gvals = torch.tensor([0.7], device=cuda)
+        st = prep(pos, box, gvals, data)
+        out[pipeline] = app(pos, box, gvals, data, st)
+        if pipeline == "grid":
+            again = app(pos, box, gvals, data, st)
+            assert torch.equal(again[1], out["grid"][1])
+    (e_s, f_s, _), (e_g, f_g, _) = out["stencil"], out["grid"]
+    assert torch.equal(e_s, e_g)
+    assert float((f_g - f_s).abs().max()) <= 2e-5 * (float(f_s.abs().max())
+                                                     + 1.0)

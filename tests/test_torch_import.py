@@ -35,5 +35,7 @@ def test_kernel_build_is_lazy():
     assert kernels.CSRC_DIR.is_dir()
     names = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
     assert names == {"pair_column.cu", "pair_cell.cu", "pme_spread.cu",
-                     "pme_interp.cu"}
+                     "pme_interp.cu", "pme_spread_windows.cu", "pme_fold.cu",
+                     "pme_extract.cu", "pme_interp_windows.cu"}
+    assert {"nbs_" + n[:-3] for n in names} == set(kernels._SIGNATURES)
     assert len(kernels.source_hash()) == 16

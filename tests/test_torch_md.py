@@ -66,6 +66,56 @@ def test_md_trajectory_matches_jax():
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)
 
 
+def test_md_grid_pipeline_matches_stencil_pipeline(monkeypatch):
+    """10 steps through make_md_step(pme_pipeline="grid") against the
+    default pipeline from the same start.  In float64 the two trajectories
+    agree to 1e-10 nm and the final energies to 1e-10 relative (the same
+    arithmetic in another layout).  In float32 the pipelines' forces differ
+    by rounding, which ten constrained steps amplify: positions to 1e-4 nm
+    and the energy to 1e-3 relative, this file's float32 budget.  The four
+    window kernels' wrappers are called once per step and once for the
+    final energy, the whole-grid ones only by the double spread of that
+    evaluation."""
+    from nonbondedslicing_tpu_torch.ops import cuda_pme
+    plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
+    calls = {name: 0 for name in (
+        "pme_spread_windows", "pme_fold", "pme_extract", "pme_interp_windows",
+        "pme_spread", "pme_interp")}
+    for name in calls:
+        def counted(*args, _name=name, _fn=getattr(cuda_pme, name), **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(cuda_pme, name, counted)
+    for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-3),
+                              (torch.float64, 1e-10, 1e-10)):
+        data_t = tengine.data_from_numpy(data_np, device="cpu", dtype=dtype)
+        out = {}
+        for pipeline in ("grid", "stencil"):
+            run = make_md_step(plan_t, masses, dt=0.001, dtype=dtype,
+                               constraints=constraints, reuse_steps=4,
+                               pme_pipeline=pipeline)
+            assert run.config["pme_pipeline"] == pipeline
+            before = dict(calls)
+            out[pipeline] = run(positions, np.zeros_like(positions),
+                                np.diag([box] * 3), np.array([1.0]), data_t,
+                                10)
+            made = {name: calls[name] - before[name] for name in calls}
+            if pipeline == "grid":
+                assert made == {
+                    "pme_spread_windows": 11, "pme_fold": 11,
+                    "pme_extract": 11, "pme_interp_windows": 11,
+                    "pme_spread": 1, "pme_interp": 0}
+            else:
+                assert made == {
+                    "pme_spread_windows": 0, "pme_fold": 0, "pme_extract": 0,
+                    "pme_interp_windows": 0, "pme_spread": 12,
+                    "pme_interp": 11}
+        (p_g, _, e_g), (p_s, _, e_s) = out["grid"], out["stencil"]
+        np.testing.assert_allclose(p_g.numpy(), p_s.numpy(), rtol=0,
+                                   atol=atol)
+        np.testing.assert_allclose(float(e_g), float(e_s), rtol=rtol)
+
+
 def test_md_guards_raise():
     plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
     data_t = tengine.data_from_numpy(data_np, device="cpu",

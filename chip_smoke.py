@@ -331,15 +331,26 @@ def slice_energies(moments, nsub):
                         for a, b in zip(*np.triu_indices(nsub))])
 
 
-def pair_kernel_check(name, kernel, plain, args, pc, reps):
+def pair_kernel_check(name, kernel, plain, args, pc, reps, cell_kernel):
     """A pair kernel against its plain twin on the same CUDA tensors
-    (``args[9]`` is the energies flag): forces within TOL_FORCE, slice
-    energies within TOL_ENERGY, and CUDA-event times of both."""
+    (``args[9]`` is the energies flag): how the call is cut into blocks,
+    forces within TOL_FORCE, slice energies within TOL_ENERGY, two launches
+    equal to the bit, and CUDA-event times of both."""
     import torch
+    from nonbondedslicing_tpu_torch.ops.cuda_direct import pair_launch_shape
     energies = args[9]
+    shape = pair_launch_shape(pc, cell_kernel, energies)
+    print(f"{name}: {shape['blocks']} blocks ({shape['row_blocks']} per "
+          f"cell) of {shape['threads']} threads, {shape['shared_bytes']} "
+          f"bytes of dynamic shared memory, {shape['tile_cells']} of the 27 "
+          f"neighbour cells staged at a time")
     f_k, m_k = kernel(*args)
     f_p, m_p = plain(*args)
+    f_k2, m_k2 = kernel(*args)
     torch.cuda.synchronize()
+    check(torch.equal(f_k, f_k2) and (not energies or torch.equal(m_k, m_k2)),
+          f"{name}: forces" + (" and moments" if energies else "")
+          + " of two launches equal to the bit (no atomics)")
     err = float((f_k - f_p).abs().max())
     fmax = float(f_p.abs().max())
     check(err <= TOL_FORCE * (fmax + 1.0),
@@ -841,10 +852,10 @@ def main():
     for name, energies in (("pair_column", False),
                            ("pair_column_energies", True)):
         args = (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
-                st["sexcl"], lam_c_nn, lam_v_nn, box, pc, energies)
+                st["sexcl"], lam_c_nn, lam_v_nn, box, pc, energies, n)
         results[name] = pair_kernel_check(
             name, cuda_direct.pair_column, cuda_direct.pair_column_plain,
-            args, pc, reps)
+            args, pc, reps, cell_kernel=False)
         results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
             pc, energies, n_pair, 0, cell_kernel=False)
 
@@ -933,7 +944,7 @@ def main():
                 s_lam[:, 1][s_sl_tab].contiguous(), box, s_pc, energies, s_n)
         results[name] = pair_kernel_check(
             name, cuda_direct.pair_cell, cuda_direct.pair_cell_plain, args,
-            s_pc, reps)
+            s_pc, reps, cell_kernel=True)
         results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
             s_pc, energies, n_pair, n_excl, cell_kernel=True)
     results.update(pme_kernel_checks(

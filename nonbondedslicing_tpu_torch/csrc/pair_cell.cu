@@ -17,22 +17,50 @@
 //   -erf(alpha r) k qq / r, its Taylor limit when erf(alpha r) <= 1e-6, on
 //   the unwrapped delta unless exceptions are periodic.
 //
-// Design: B1's (pair_column.cu): one block per home cell, one thread per home
-// slot, a FULL shell of 27 neighbour cells staged in shared memory, row
-// forces only, no atomics, energies weighted 1/2.  Each excluded pair is
-// met from both sides too, so its correction goes to the row atom only and
-// its energy is weighted 1/2.  The minimum-image subtractions and r^2 are
-// rounded without FMA contraction, exactly as the plain twin computes them,
-// so both take the same cutoff decision.  Each row's exclusion scan stops at
-// its first -1 (the plan fills the lists from the front): water rows hold 2
-// entries of the solute's emax 6.
+// What it computes is B1's (pair_column.cu): a FULL shell of 27 neighbour
+// cells, row forces only, no atomics, energies weighted 1/2.  Each excluded
+// pair is met from both sides too, so its correction goes to the row atom
+// only and its energy is weighted 1/2.
 //
-// What bounds it on an H100: the FP32 instruction rate.  Every one of the
-// 27 * C candidates of an atom pays the minimum image (3 divisions, 3
-// floors, 6 multiply-subtracts) and the exclusion scan before the cutoff
-// test, which B1 does not; ~10% of them are inside the cutoff (one rsqrt,
-// one exp per kept pair).  216 blocks for 132 SMs underfill the card, as
-// for B1.
+// What bounds it on an H100: the FP32 instruction rate and, as for B1, the
+// latency of a warp's steps.  The exact minimum image (3 divisions, 3
+// floors, 6 multiply-subtracts, each rounded as the plain twin rounds it so
+// that both take the same cutoff decision) is too dear to pay for 27 * C
+// candidates of which ~6.5% are kept.  The design is B1's (pair_common.cuh:
+// one warp per row atom, a queue of hits, the physics on 32 hits at a
+// time), with these differences:
+//
+// * phase 2 runs the exact sequence on the positions as given (what was
+//   staged, or gathered from the slot tensors if the frame moved the atom)
+//   and decides; phase 1 only has to let every pair within the cutoff
+//   through.  It does so in one of two ways, chosen per block from its own
+//   data (pair_common.cuh, home_frame):
+//   - framed: candidates and rows are staged as the images nearest to the
+//     middle of the home cell's atoms, where their plain difference is the
+//     minimum-image delta of every pair within reach: phase 1 is B1's, a
+//     contracted r^2 against a cutoff widened by kWiden;
+//   - else (a triclinic box, or a home cell too wide for it): a CHEAP
+//     minimum image per candidate (reciprocal multiplies, FMAs, rounding by
+//     adding and subtracting 1.5 * 2^23).  No pair within the cutoff is
+//     lost: where the cheap and the exact sequence choose the same three
+//     image integers, their deltas differ by a few roundings of the raw
+//     delta and the box (below 1e-6 of them; kWiden gives 0.5% of the
+//     cutoff, enough for raw deltas of some thousand cutoffs; a raw delta
+//     of 2^22 box lengths or more, where the rounding by two adds fails,
+//     has no meaning in float positions, whose spacing is then half a
+//     box); where they choose differently, on the first axis where they do
+//     d / b_kk is within rounding of a half integer, so that component of
+//     the exact delta is about b_kk / 2 >= 1.5 cutoffs (>= 3 cells of >=
+//     one cutoff per axis), and the exact test rejects the pair too;
+// * phase 1 also carries the exclusion compare (the pad mask is the
+//   staging's: pads are not staged), since an excluded pair is corrected
+//   whatever its distance: the row's list is scanned only in a step where
+//   one of the warp's 128 candidates lies between the list's smallest and
+//   largest entry.  Excluded hits are queued with a flag, and phase 2 runs
+//   the correction on them.  The row itself passes phase 1 and is dropped
+//   in phase 2.
+
+#include <type_traits>
 
 #include "pair_common.cuh"
 
@@ -40,173 +68,208 @@ namespace {
 
 using namespace nbs_pair;
 
+constexpr float kWiden = 1.01f;     // phase 1 tests r^2 < kWiden * cutoff^2
+constexpr int kExcludedFlag = 1 << 15;   // of a queue entry
+
 template <bool ENERGIES>
-__global__ void pair_cell_kernel(const float* __restrict__ pos,
-                                 const float* __restrict__ par,
-                                 const int* __restrict__ sub,
-                                 const int* __restrict__ ids,
-                                 const int* __restrict__ excl,
-                                 const float* __restrict__ lam_c,
-                                 const float* __restrict__ lam_v,
-                                 const float* __restrict__ box_g,
-                                 float* __restrict__ forces,
-                                 float* __restrict__ moments,
-                                 PairParams p, int n_real,
-                                 int exceptions_periodic) {
-    extern __shared__ float smem[];
+__global__ void __launch_bounds__(32 * kWarps, 2)
+pair_cell_kernel(const float* __restrict__ pos,
+                 const float* __restrict__ par,
+                 const int* __restrict__ sub,
+                 const int* __restrict__ ids,
+                 const int* __restrict__ excl,
+                 const float* __restrict__ lam_c,
+                 const float* __restrict__ lam_v,
+                 const float* __restrict__ box,
+                 float* __restrict__ forces,
+                 float* __restrict__ moments, PairParams p,
+                 int exceptions_periodic) {
+    extern __shared__ __align__(16) float smem[];
+    const Shared s = carve(smem, p, true);
     const int C = p.capacity;
     const int nsub = p.nsub;
-    const Panel s = carve_panel(smem, C, nsub);
+    const int cell = blockIdx.x / p.row_blocks;
+    const int chunk = blockIdx.x - cell * p.row_blocks;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int* const my_excl = s.excl + warp * kMaxExclusions;
+    float* const my_panel = s.moments + warp * 2 * nsub * nsub;
 
-    const int cell = blockIdx.x;
-    const int cz = cell % p.ncz;
-    const int cy = (cell / p.ncz) % p.ncy;
-    const int cx = cell / (p.ncy * p.ncz);
-    const int t = threadIdx.x;
-
-    for (int k = t; k < nsub * nsub; k += blockDim.x) {
-        s.lam_c[k] = lam_c[k];
-        s.lam_v[k] = lam_v[k];
-    }
-    const float bxx = box_g[0];
-    const float byx = box_g[3], byy = box_g[4];
-    const float bzx = box_g[6], bzy = box_g[7], bzz = box_g[8];
-
-    // pad rows (index n_real) take no part, as pad columns
-    const bool active = t < C && ids[cell * C + t] < n_real;
-    float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f, sgi = 0.f, epi = 0.f;
-    int si = 0;
-    int nex = 0;
-    int exi[kMaxExclusions];
-#pragma unroll
-    for (int e = 0; e < kMaxExclusions; ++e) exi[e] = -1;
-    if (active) {
-        xi = pos[(cell * 3 + 0) * C + t];
-        yi = pos[(cell * 3 + 1) * C + t];
-        zi = pos[(cell * 3 + 2) * C + t];
-        qi = par[(cell * 3 + 0) * C + t] * p.sqrt_ke;
-        sgi = par[(cell * 3 + 1) * C + t];
-        epi = par[(cell * 3 + 2) * C + t];
-        si = sub[cell * C + t];
-        bool open = true;
-#pragma unroll
-        for (int e = 0; e < kMaxExclusions; ++e) {
-            if (e < p.emax && open) {
-                exi[e] = excl[(cell * p.emax + e) * C + t];
-                open = exi[e] >= 0;
-                nex += open ? 1 : 0;
-            }
-        }
-    }
-
-    float fx = 0.f, fy = 0.f, fz = 0.f;
-    float ec[kMaxSubsets], ev[kMaxSubsets];
-#pragma unroll
-    for (int b = 0; b < kMaxSubsets; ++b) {
-        ec[b] = 0.f;
-        ev[b] = 0.f;
-    }
+    const Box pbox(box);
+    const float bxx = pbox.xx, byx = pbox.yx, byy = pbox.yy;
+    const float bzx = pbox.zx, bzy = pbox.zy, bzz = pbox.zz;
+    const float cutoff2_wide = kWiden * p.cutoff2;
     const bool fuse_corrections = p.mode == kModeEwald;
 
-    for (int o = 0; o < 27; ++o) {
-        int nxc = cx + o / 9 - 1, nyc = cy + (o / 3) % 3 - 1, nzc = cz + o % 3 - 1;
-        nxc += nxc < 0 ? p.ncx : (nxc >= p.ncx ? -p.ncx : 0);
-        nyc += nyc < 0 ? p.ncy : (nyc >= p.ncy ? -p.ncy : 0);
-        nzc += nzc < 0 ? p.ncz : (nzc >= p.ncz ? -p.ncz : 0);
-        const int nc = (nxc * p.ncy + nyc) * p.ncz + nzc;
-        __syncthreads();   // previous cell's panel fully consumed
-        for (int k = t; k < C; k += blockDim.x) {
-            s.x[k] = pos[(nc * 3 + 0) * C + k];
-            s.y[k] = pos[(nc * 3 + 1) * C + k];
-            s.z[k] = pos[(nc * 3 + 2) * C + k];
-            s.q[k] = par[(nc * 3 + 0) * C + k] * p.sqrt_ke;
-            s.sig[k] = par[(nc * 3 + 1) * C + k];
-            s.eps[k] = par[(nc * 3 + 2) * C + k];
-            s.sub[k] = sub[nc * C + k];
-            s.id[k] = ids[nc * C + k];
-        }
-        __syncthreads();
-        if (!active) continue;
-        const bool self_cell = (o == 13);
-        for (int j = 0; j < C; ++j) {
-            if (self_cell && j == t) continue;
-            const int idj = s.id[j];
-            if (idj >= n_real) continue;
-            const float dx0 = xi - s.x[j];
-            const float dy0 = yi - s.y[j];
-            const float dz0 = zi - s.z[j];
-            // minimum image, each product and difference rounded
-            const float nz = floorf(__fadd_rn(__fdiv_rn(dz0, bzz), 0.5f));
-            float ddx = __fsub_rn(dx0, __fmul_rn(nz, bzx));
-            float ddy = __fsub_rn(dy0, __fmul_rn(nz, bzy));
-            const float ddz = __fsub_rn(dz0, __fmul_rn(nz, bzz));
-            const float ny = floorf(__fadd_rn(__fdiv_rn(ddy, byy), 0.5f));
-            ddx = __fsub_rn(ddx, __fmul_rn(ny, byx));
-            ddy = __fsub_rn(ddy, __fmul_rn(ny, byy));
-            const float nx = floorf(__fadd_rn(__fdiv_rn(ddx, bxx), 0.5f));
-            ddx = __fsub_rn(ddx, __fmul_rn(nx, bxx));
+    block_tables<ENERGIES>(s, p, cell, lam_c, lam_v, box);
+    __syncthreads();
+    home_frame(s, pos, ids, C, p.n_real, pbox, sqrtf(kWiden) * p.cutoff);
+    __syncthreads();
+    const bool framed = s.frame[3] != 0.f;
 
-            bool excluded = false;
-#pragma unroll
-            for (int e = 0; e < kMaxExclusions; ++e) {
-                if (e >= nex) break;
-                excluded |= (exi[e] == idj);
-            }
-            const int sj = s.sub[j];
-            if (excluded) {
-                if (!fuse_corrections) continue;
-                const float ux = exceptions_periodic ? ddx : dx0;
-                const float uy = exceptions_periodic ? ddy : dy0;
-                const float uz = exceptions_periodic ? ddz : dz0;
-                const float r2x = ux * ux + uy * uy + uz * uz;
-                const float rinvx = rsqrtf(r2x);
-                const float rx = r2x * rinvx;
-                const float arx = p.alpha * rx;
-                float gauss;
-                const float erf_ar = 1.f - erfc_hastings(arx, &gauss);
-                const bool big = erf_ar > 1e-6f;
-                const float qq = qi * s.q[j];
-                const float dedr_x = big
-                    ? qq * rinvx * rinvx * rinvx * (erf_ar - kTwoOverSqrtPi * arx * gauss)
-                    : 0.f;
-                const float factor_x = -s.lam_c[si * nsub + sj] * dedr_x;
-                fx += factor_x * ux;
-                fy += factor_x * uy;
-                fz += factor_x * uz;
-                if (ENERGIES) {
-                    const float e_cx = big ? -qq * rinvx * erf_ar
-                                           : -p.alpha * kTwoOverSqrtPi * qq;
-                    add_half(ec, ev, sj, e_cx, 0.f);
-                }
+    for (int o0 = 0; o0 < kNeighbours; o0 += p.tile_cells) {
+        __syncthreads();   // previous tile fully consumed
+        const int ncand = stage_tile<false, true>(
+            s, pos, ids, C, p.n_real, o0, min(p.tile_cells, kNeighbours - o0),
+            framed ? &pbox : nullptr);
+        __syncthreads();
+
+        for (int t = chunk + p.row_blocks * warp; t < C;
+             t += p.row_blocks * nwarps) {
+            // pad rows take no part, as pad columns
+            if (ids[cell * C + t] >= p.n_real) {
+                if (o0 == 0) zero_row(forces, cell, t, C);
                 continue;
             }
-            const float r2 = r2_rn(ddx, ddy, ddz);
-            if (r2 >= p.cutoff2) continue;
+            const Row row = load_row(pos, par, sub, excl, my_excl, cell, t, p);
+            const int self = kHome << 10 | t;   // the row among the staged
+            // the row as phase 1 sees it: in the block's frame, if any
+            float rx = row.x, ry = row.y, rz = row.z;
+            if (framed) pbox.to_frame(s.frame, rx, ry, rz);
+            Sums acc;
+            acc.clear();
+            Queue queue{s.queue + warp * kQueue, 0, 0};
 
-            const PairTerms pt = pair_terms(r2, qi * s.q[j], sgi + s.sig[j],
-                                            epi * s.eps[j], p);
-            const float factor = s.lam_v[si * nsub + sj] * pt.dedr_vdw
-                                 + s.lam_c[si * nsub + sj] * pt.dedr_coul;
-            fx += factor * ddx;
-            fy += factor * ddy;
-            fz += factor * ddz;
-            if (ENERGIES) add_half(ec, ev, sj, pt.e_coul, pt.e_vdw);
+            // phase 2: the first n queued entries, one per lane: the exact
+            // minimum image of the raw positions, then the correction of an
+            // excluded pair or the cutoff test and the pair physics
+            auto batch = [&](int n) {
+                const int entry = queue.pop(n);
+                if (lane >= n) return;
+                const bool excluded = (entry & kExcludedFlag) != 0;
+                const int k = entry & (kExcludedFlag - 1);
+                const int where = s.where[k];
+                if ((where & (kMovedFlag - 1)) == self) return;
+                const Partner pj = partner_at(s, where, C);
+                const int sj = sub[pj.slot];
+                const float qq = row.q * (par[pj.par] * p.sqrt_ke);
+                const float sgj = par[pj.par + C];
+                const float epj = par[pj.par + 2 * C];
+                // the partner as given: what was staged, unless the block's
+                // frame moved it
+                const bool moved = (where & kMovedFlag) != 0;
+                const float dx0 = row.x - (moved ? pos[pj.par] : s.x[k]);
+                const float dy0 = row.y - (moved ? pos[pj.par + C] : s.y[k]);
+                const float dz0 =
+                    row.z - (moved ? pos[pj.par + 2 * C] : s.z[k]);
+                // minimum image, each product and difference rounded
+                const float nz = floorf(__fadd_rn(__fdiv_rn(dz0, bzz), 0.5f));
+                float ddx = __fsub_rn(dx0, __fmul_rn(nz, bzx));
+                float ddy = __fsub_rn(dy0, __fmul_rn(nz, bzy));
+                const float ddz = __fsub_rn(dz0, __fmul_rn(nz, bzz));
+                const float ny = floorf(__fadd_rn(__fdiv_rn(ddy, byy), 0.5f));
+                ddx = __fsub_rn(ddx, __fmul_rn(ny, byx));
+                ddy = __fsub_rn(ddy, __fmul_rn(ny, byy));
+                const float nx = floorf(__fadd_rn(__fdiv_rn(ddx, bxx), 0.5f));
+                ddx = __fsub_rn(ddx, __fmul_rn(nx, bxx));
+
+                const float lam_cp = s.lam_c[row.sub * nsub + sj];
+                if (excluded) {
+                    const float ux = exceptions_periodic ? ddx : dx0;
+                    const float uy = exceptions_periodic ? ddy : dy0;
+                    const float uz = exceptions_periodic ? ddz : dz0;
+                    const float r2x = ux * ux + uy * uy + uz * uz;
+                    const float rinvx = rsqrtf(r2x);
+                    const float arx = p.alpha * (r2x * rinvx);
+                    float gauss;
+                    const float erf_ar = 1.f - erfc_hastings(arx, &gauss);
+                    const bool big = erf_ar > 1e-6f;
+                    const float dedr_x = big
+                        ? qq * rinvx * rinvx * rinvx
+                          * (erf_ar - kTwoOverSqrtPi * arx * gauss)
+                        : 0.f;
+                    const float factor_x = -lam_cp * dedr_x;
+                    acc.fx += factor_x * ux;
+                    acc.fy += factor_x * uy;
+                    acc.fz += factor_x * uz;
+                    if (ENERGIES) {
+                        acc.add_half(sj, big ? -qq * rinvx * erf_ar
+                                             : -p.alpha * kTwoOverSqrtPi * qq,
+                                     0.f);
+                    }
+                    return;
+                }
+                const float r2 = r2_rn(ddx, ddy, ddz);
+                if (r2 >= p.cutoff2) return;
+                const PairTerms pt = pair_terms(r2, qq, row.sig + sgj,
+                                                row.eps * epj, p);
+                const float factor =
+                    s.lam_v[row.sub * nsub + sj] * pt.dedr_vdw
+                    + lam_cp * pt.dedr_coul;
+                acc.fx += factor * ddx;
+                acc.fy += factor * ddy;
+                acc.fz += factor * ddz;
+                if (ENERGIES) acc.add_half(sj, pt.e_coul, pt.e_vdw);
+            };
+
+            // phase 1: kStride candidates tested, four per lane; the hits
+            // queued.  FRAMED: the staged positions and (rx, ry, rz) are
+            // images nearest to the block's frame, and their difference
+            // needs no image.
+            auto phase1 = [&](auto framed_c) {
+                constexpr bool FRAMED = decltype(framed_c)::value;
+                for (int k0 = 0; k0 < ncand; k0 += kStride) {
+                    const int kb = k0 + kSteps * lane;
+                    const float4 x4 = load4<float4>(s.x, kb);
+                    const float4 y4 = load4<float4>(s.y, kb);
+                    const float4 z4 = load4<float4>(s.z, kb);
+                    const int4 id4 = load4<int4>(s.id, kb);
+                    const float xs[kSteps] = {x4.x, x4.y, x4.z, x4.w};
+                    const float ys[kSteps] = {y4.x, y4.y, y4.z, y4.w};
+                    const float zs[kSteps] = {z4.x, z4.y, z4.z, z4.w};
+                    const int idj[kSteps] = {id4.x, id4.y, id4.z, id4.w};
+                    bool hit[kSteps];
+                    int entry[kSteps];
+                    bool listed = false;    // maybe: between two entries
+#pragma unroll
+                    for (int u = 0; u < kSteps; ++u) {
+                        float ax = rx - xs[u];
+                        float ay = ry - ys[u];
+                        float az = rz - zs[u];
+                        if (!FRAMED) pbox.image_cheap(ax, ay, az);
+                        hit[u] = ax * ax + ay * ay + az * az < cutoff2_wide;
+                        entry[u] = kb + u;
+                        listed |= unsigned(idj[u]) - unsigned(row.ex_min)
+                                  <= row.ex_span;
+                    }
+                    if (__any_sync(kFullMask, listed)) {
+#pragma unroll
+                        for (int u = 0; u < kSteps; ++u) {
+                            bool excluded = false;
+                            for (int e = 0; e < row.nex; ++e) {
+                                excluded |= my_excl[e] == idj[u];
+                            }
+                            if (excluded) {
+                                hit[u] = fuse_corrections;
+                                entry[u] |= kExcludedFlag;
+                            }
+                        }
+                    }
+#pragma unroll
+                    for (int u = 0; u < kSteps; ++u) {
+                        queue.push(hit[u], entry[u]);
+                    }
+                    while (queue.count >= 32) batch(32);
+                }
+            };
+            if (framed) {
+                phase1(std::true_type{});
+            } else {
+                phase1(std::false_type{});
+            }
+            if (queue.count > 0) batch(queue.count);
+            finish_row<ENERGIES>(acc, row.sub, o0 == 0, forces, cell, t, C,
+                                 nsub, my_panel);
         }
     }
-
-    if (t < C) {
-        forces[(cell * 3 + 0) * C + t] = fx;
-        forces[(cell * 3 + 1) * C + t] = fy;
-        forces[(cell * 3 + 2) * C + t] = fz;
-    }
-    if (ENERGIES) store_moments(ec, ev, active, si, s, nsub, moments, cell);
+    if (ENERGIES) store_moments(s, nsub, moments);
 }
 
 }  // namespace
 
 // The arguments of nbs_pair_column (pair_column.cu), with pos the raw
-// (unshifted) slot positions, plus n_real (slots whose atom index is
-// n_real or more are pads) and exceptions_periodic (nonzero: exclusion
+// (unshifted) slot positions, plus exceptions_periodic (nonzero: exclusion
 // corrections on the minimum-image delta).  Returns the cudaError_t of the
 // launch.
 extern "C" int nbs_pair_cell(const void* pos, const void* par,
@@ -220,23 +283,20 @@ extern "C" int nbs_pair_cell(const void* pos, const void* par,
                              float cutoff2, float switch_distance, float krf,
                              float crf, float alpha, float sqrt_ke,
                              int energies, void* stream) {
-    if (nsub > kMaxSubsets || emax > kMaxExclusions || capacity > 1024
-        || (mode != kModeReactionField && mode != kModeEwald)) {
+    if (!shapes_ok(capacity, nsub, emax, mode)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    const LaunchShape g = launch_shape(capacity, nsub, true, energies != 0);
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
+                 n_real, g.row_blocks, g.tile_cells, g.cand_stride,
                  cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke};
-    const int threads = ((capacity + 31) / 32) * 32;
-    const size_t shmem = panel_bytes(capacity, nsub, threads);
-    const dim3 grid(ncx * ncy * ncz);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    auto kernel = energies ? pair_cell_kernel<true> : pair_cell_kernel<false>;
-    kernel<<<grid, threads, shmem, st>>>(
+    return launch_rows(
+        energies ? pair_cell_kernel<true> : pair_cell_kernel<false>, g,
+        ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
         static_cast<const float*>(pos), static_cast<const float*>(par),
         static_cast<const int*>(sub), static_cast<const int*>(ids),
         static_cast<const int*>(excl), static_cast<const float*>(lam_c),
         static_cast<const float*>(lam_v), static_cast<const float*>(box),
-        static_cast<float*>(forces), static_cast<float*>(moments), p, n_real,
+        static_cast<float*>(forces), static_cast<float*>(moments), p,
         exceptions_periodic);
-    return static_cast<int>(cudaGetLastError());
 }

@@ -25,16 +25,40 @@ Slot layout (n_cells = ncx*ncy*ncz cells in x-major order, C slots each):
 * ``slot_sub``, ``slot_ids`` (n_cells, C) int32: subset and atom index;
 * ``slot_excl`` (n_cells, emax, C) int32: excluded partners, -1 padded.
 
-Outputs: forces (n_cells, 3, C) and, with ``energies``, per-cell moments
-(n_cells, 2, nsub, nsub) [Coulomb, vdW]: the unscaled pair energies summed
+Outputs: forces (n_cells, 3, C) and, with ``energies``, moment panels
+(n_panels, 2, nsub, nsub) [Coulomb, vdW]: the unscaled pair energies summed
 over (home subset a, partner subset b) with weight 1/2 (every pair is
-visited from both sides).  Slice energies are then m[a, a] on the diagonal
-and m[a, b] + m[b, a] off it.
+visited from both sides).  Readers sum the panels (in float64): the plain
+twins give one panel per cell, the kernels one per block (``row_blocks``
+blocks per cell, ``pair_launch_shape``).  Slice energies are then m[a, a]
+on the diagonal and m[a, b] + m[b, a] off it.
+
+The kernels' design (``csrc/pair_common.cuh``): on an H100 they are bound
+by the FP32 instruction rate and the latency of shared-memory round trips,
+and most of the work is testing the 27 * C candidates of a row atom, of
+which a few percent lie within the cutoff.  A block owns a share of one
+home cell's rows and stages the real slots of the 27 neighbour cells in
+shared memory (pads left out).  One warp takes one row atom; its lanes
+test 128 candidates at a time, positions only, with a test that is cheap
+and loses no pair (a contracted r^2 against a slightly widened cutoff);
+the hits go in a fixed order into a queue per warp, and the pair physics
+runs on 32 queued hits at a time with every lane alive: there the cutoff
+is decided exactly as the twin decides it, and the partner's parameters
+are gathered from the slot tensors.  A lane sums every 32nd hit of its row
+and a butterfly adds the lanes in a fixed order, so forces and moments are
+the same bits on every launch without atomics.  The cell kernel stages
+every position as the periodic image nearest to the middle of the block's
+home cell, where a plain difference is the minimum-image delta of every
+pair within reach (if the block's data allow it; else a cheap minimum
+image per candidate), and runs the exact, division-based sequence for the
+queued pairs only.  Pad rows (atom index >= ``n_real``) are skipped.
 
 The wrappers launch the kernels for CUDA tensors and run the plain twins
 only for CPU tensors.
 """
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -45,8 +69,8 @@ from ..utils.constants import ONE_4PI_EPS0, SQRT_PI
 
 MODE_REACTION_FIELD = 0
 MODE_EWALD = 1
-# limits of the CUDA kernels (csrc/pair_common.cuh: register accumulators
-# and one thread per slot)
+# limits of the CUDA kernels (csrc/pair_common.cuh: register accumulators,
+# the row's exclusion list in shared memory, the staged tile)
 MAX_SUBSETS = 8
 MAX_EXCLUSIONS = 16
 MAX_CAPACITY = 1024
@@ -107,10 +131,11 @@ def _min_image(dx, dy, dz, box):
 
 
 def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-                lam_v_nn, box, cfg, energies, n_real):
-    """Both kernels' plain twin, in the slot tensors' dtype: the column
-    kernel's when ``n_real`` is None, else the cell kernel's."""
-    cell_kernel = n_real is not None
+                lam_v_nn, box, cfg, energies, n_real, cell_kernel):
+    """Both kernels' plain twin, in the slot tensors' dtype.  The column
+    kernel's does not read ``n_real``: its pads lie beyond the cutoff of
+    every slot, so they get zero force as rows and give none as
+    candidates."""
     ncx, ncy, ncz = cfg.counts
     C = cfg.capacity
     nsub = cfg.nsub
@@ -242,17 +267,17 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
 
 
 def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                      lam_c_nn, lam_v_nn, box, cfg, energies):
+                      lam_c_nn, lam_v_nn, box, cfg, energies, n_real):
     """Plain torch twin of ``csrc/pair_column.cu``."""
     return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                       lam_c_nn, lam_v_nn, box, cfg, energies, None)
+                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, False)
 
 
 def pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
                     lam_c_nn, lam_v_nn, box, cfg, energies, n_real):
     """Plain torch twin of ``csrc/pair_cell.cu``."""
     return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real)
+                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, True)
 
 
 def _check(name, t, shape, dtype, device):
@@ -267,18 +292,41 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_limits(entry, cfg):
+    if (cfg.nsub > MAX_SUBSETS or cfg.emax > MAX_EXCLUSIONS
+            or cfg.capacity > MAX_CAPACITY):
+        raise ValueError(
+            f"{entry}: the CUDA kernel takes at most {MAX_SUBSETS} "
+            f"subsets, {MAX_EXCLUSIONS} exclusions per atom and "
+            f"{MAX_CAPACITY} slots per cell (got {cfg.nsub}, {cfg.emax}, "
+            f"{cfg.capacity})")
+
+
+@functools.lru_cache(maxsize=None)
+def pair_launch_shape(cfg, cell_kernel, energies):
+    """How the CUDA kernel cuts a call with ``cfg`` (asked of the built
+    library, ``nbs_pair_launch_shape``): blocks (``row_blocks`` per cell,
+    each with its own moment panel), threads per block, the neighbour cells
+    staged at a time and the dynamic shared memory of a block in bytes."""
+    _check_limits("pair_launch_shape", cfg)
+    out = (ctypes.c_int * 4)()
+    LIBRARY.call("nbs_pair_launch_shape", cfg.capacity, cfg.nsub, cfg.emax,
+                 int(bool(cell_kernel)), int(bool(energies)),
+                 ctypes.addressof(out))
+    row_blocks, threads, tile_cells, shared_bytes = out
+    return dict(blocks=cfg.n_cells * row_blocks, row_blocks=row_blocks,
+                threads=threads, tile_cells=tile_cells,
+                shared_bytes=shared_bytes)
+
+
 def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-            lam_c_nn, lam_v_nn, box, cfg, energies, extra_ints):
+            lam_c_nn, lam_v_nn, box, cfg, energies, n_real, cell_kernel):
     """Check the slot tensors, allocate the outputs and launch ``entry``."""
     dev = slot_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
+    _check_limits(entry, cfg)
     g, C, nsub = cfg.n_cells, cfg.capacity, cfg.nsub
-    if nsub > MAX_SUBSETS or cfg.emax > MAX_EXCLUSIONS or C > MAX_CAPACITY:
-        raise ValueError(
-            f"{entry}: the CUDA kernel takes at most {MAX_SUBSETS} "
-            f"subsets, {MAX_EXCLUSIONS} exclusions per atom and "
-            f"{MAX_CAPACITY} slots per cell (got {nsub}, {cfg.emax}, {C})")
     f32, i32 = torch.float32, torch.int32
     _check("slot_pos", slot_pos, (g, 3, C), f32, dev)
     _check("slot_par", slot_par, (g, 3, C), f32, dev)
@@ -289,8 +337,10 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
     _check("lam_v_nn", lam_v_nn, (nsub, nsub), f32, dev)
     _check("box", box, (3, 3), f32, dev)
     forces = torch.empty((g, 3, C), dtype=f32, device=dev)
-    moments = (torch.empty((g, 2, nsub, nsub), dtype=f32, device=dev)
-               if energies else None)
+    moments = None
+    if energies:
+        blocks = pair_launch_shape(cfg, cell_kernel, True)["blocks"]
+        moments = torch.empty((blocks, 2, nsub, nsub), dtype=f32, device=dev)
     ncx, ncy, ncz = cfg.counts
     LIBRARY.call(
         entry, slot_pos.data_ptr(), slot_par.data_ptr(),
@@ -298,7 +348,7 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
         lam_c_nn.data_ptr(), lam_v_nn.data_ptr(), box.data_ptr(),
         forces.data_ptr(), None if moments is None else moments.data_ptr(),
         ncx, ncy, ncz, C, nsub, cfg.emax, cfg.mode, int(cfg.use_switch),
-        *extra_ints,
+        int(n_real), *([int(cfg.exceptions_periodic)] if cell_kernel else []),
         cfg.cutoff, cfg.cutoff * cfg.cutoff, cfg.switch_distance, cfg.krf,
         cfg.crf, cfg.ewald_alpha,
         math.sqrt(ONE_4PI_EPS0), int(bool(energies)),
@@ -307,16 +357,18 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
 
 
 def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-                lam_v_nn, box, cfg, energies):
-    """Pair forces (n_cells, 3, C) and moments (n_cells, 2, nsub, nsub) or
-    None.  CPU tensors take the plain twin; CUDA tensors launch the
-    kernel."""
+                lam_v_nn, box, cfg, energies, n_real):
+    """Pair forces (n_cells, 3, C) and moment panels (n_panels, 2, nsub,
+    nsub) or None.  Slots whose atom index is ``n_real`` or more are pads,
+    which the caller has moved beyond the cutoff of every slot.  CPU
+    tensors take the plain twin; CUDA tensors launch the kernel."""
     if slot_pos.device.type == "cpu":
         return pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                  slot_excl, lam_c_nn, lam_v_nn, box, cfg,
-                                 energies)
+                                 energies, n_real)
     out = _launch("nbs_pair_column", slot_pos, slot_par, slot_sub, slot_ids,
-                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, ())
+                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                  False)
     LAUNCHES["pair_column_energies" if energies else "pair_column"] += 1
     return out
 
@@ -324,16 +376,16 @@ def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
 def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
               lam_v_nn, box, cfg, energies, n_real):
     """Minimum-image pair forces with the Ewald exclusion corrections fused
-    in: (n_cells, 3, C) and moments (n_cells, 2, nsub, nsub) or None.
-    ``slot_pos`` holds raw positions; slots whose atom index is ``n_real``
-    or more are pads.  CPU tensors take the plain twin; CUDA tensors launch
-    the kernel."""
+    in: (n_cells, 3, C) and moment panels (n_panels, 2, nsub, nsub) or
+    None.  ``slot_pos`` holds raw positions; slots whose atom index is
+    ``n_real`` or more are pads.  CPU tensors take the plain twin; CUDA
+    tensors launch the kernel."""
     if slot_pos.device.type == "cpu":
         return pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                slot_excl, lam_c_nn, lam_v_nn, box, cfg,
                                energies, n_real)
     out = _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
-                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies,
-                  (int(n_real), int(cfg.exceptions_periodic)))
+                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                  True)
     LAUNCHES["pair_cell_energies" if energies else "pair_cell"] += 1
     return out

@@ -282,17 +282,15 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         pair_args = (slot_pos, state["slot_par"], state["slot_sub"],
                      state["table"], state["sexcl"], lam_c_nn,
                      lam_v[idx["sl_tab"]].contiguous(), box, pair_cfg,
-                     energies)
-        if use_cell:
-            slot_f, moments = cuda_direct.pair_cell(*pair_args, n)
-        else:
-            slot_f, moments = cuda_direct.pair_column(*pair_args)
+                     energies, n)
+        pair = cuda_direct.pair_cell if use_cell else cuda_direct.pair_column
+        slot_f, moments = pair(*pair_args)
 
         slice_e = None
         if energies:
             slice_e = torch.zeros((nslices, 2), dtype=torch.float64,
                                   device=dev)
-            # cross-cell moment reduction in f64
+            # the moment panels (one per cell or per block) summed in f64
             m = torch.sum(moments.to(torch.float64), dim=0)  # (2, nsub, nsub)
             a = slice_pairs[:, 0]
             b = slice_pairs[:, 1]

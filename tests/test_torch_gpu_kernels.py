@@ -18,6 +18,9 @@ from nonbondedslicing_tpu_torch.ops import plan as tplan
 from nonbondedslicing_tpu_torch.ops import pme as tpme
 from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
 
+from torch_pair_cases import (PAIR_CASES, half_box_arrays,
+                              pair_case_arrays, pair_case_slots)
+
 pytestmark = pytest.mark.gpu
 
 
@@ -91,7 +94,8 @@ def test_pair_kernel_matches_plain(cuda, mode, energies):
     lam = torch.tensor([[1.0, 0.7, 1.0], [0.7, 1.0, 1.0], [1.0, 1.0, 1.0]],
                        device=cuda)
     args = (s["slot_pos"], st["slot_par"], st["slot_sub"], st["table"],
-            st["sexcl"], lam, lam * 0.9, s["box"], cfg, energies)
+            st["sexcl"], lam, lam * 0.9, s["box"], cfg, energies,
+            plan.num_particles)
     before = dict(cuda_direct.LAUNCHES)
     f_k, m_k = cuda_direct.pair_column(*args)
     f_p, m_p = cuda_direct.pair_column_plain(*args)
@@ -156,6 +160,67 @@ def test_pair_cell_kernel_matches_plain(cuda, periodic, energies):
     # bitwise repeatable: no atomics in the pair kernel
     f_k2, _ = cuda_direct.pair_cell(*args)
     assert torch.equal(f_k, f_k2)
+
+
+def _pair_kernel_against_twin(arrays, cell_kernel, dev):
+    """Forces within 2e-5 * (max|F| + 1) of the plain twin's, moments within
+    1e-5 * (max + 1) after the float64 sum, and two launches equal to the
+    bit, force-only and with energies."""
+    n = arrays["charge"].shape[0]
+    args = pair_case_slots(arrays, cell_kernel, dev, torch.float32)["args"]
+    kernel, plain, name = (
+        (cuda_direct.pair_cell, cuda_direct.pair_cell_plain, "pair_cell")
+        if cell_kernel else
+        (cuda_direct.pair_column, cuda_direct.pair_column_plain,
+         "pair_column"))
+    for energies in (False, True):
+        key = name + "_energies" if energies else name
+        before = cuda_direct.LAUNCHES[key]
+        f_k, m_k = kernel(*args, energies, n)
+        f_k2, m_k2 = kernel(*args, energies, n)
+        f_p, m_p = plain(*args, energies, n)
+        torch.cuda.synchronize()
+        assert cuda_direct.LAUNCHES[key] == before + 2
+        assert float(f_p.abs().max()) > 1.0
+        assert float((f_k - f_p).abs().max()) <= 2e-5 * (
+            float(f_p.abs().max()) + 1.0)
+        assert torch.equal(f_k, f_k2)
+        if energies:
+            shape = cuda_direct.pair_launch_shape(arrays["cfg"], cell_kernel,
+                                                  True)
+            assert m_k.shape[0] == shape["blocks"]
+            mk, mp = m_k.double().sum(0), m_p.double().sum(0)
+            assert float((mk - mp).abs().max()) <= 1e-5 * (
+                float(mp.abs().max()) + 1.0)
+            assert torch.equal(m_k, m_k2)
+        else:
+            assert m_k is None
+
+
+@pytest.mark.parametrize("cell_kernel", [False, True],
+                         ids=["pair_column", "pair_cell"])
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_pair_kernels_hard_shapes_match_plain(cuda, case, cell_kernel):
+    _pair_kernel_against_twin(pair_case_arrays(case), cell_kernel, cuda)
+
+
+def test_pair_cell_kernel_at_half_a_box_length(cuda):
+    """Pairs at half a box length along one axis, where the kernel's cheap
+    minimum image of phase 1 and the exact one may differ."""
+    _pair_kernel_against_twin(half_box_arrays(), True, cuda)
+
+
+def test_pair_kernels_tile_the_largest_capacity(cuda):
+    """1024 slots a cell (the limit) are staged a few cells at a time."""
+    shape = cuda_direct.pair_launch_shape(
+        cuda_direct.PairConfig(counts=(3, 3, 3), capacity=1024, nsub=8,
+                               emax=16, mode=cuda_direct.MODE_EWALD,
+                               cutoff=0.75), True, True)
+    assert 1 <= shape["tile_cells"] < 27
+    assert shape["shared_bytes"] <= 227 * 1024
+    big = pair_case_arrays("large_capacity")
+    assert cuda_direct.pair_launch_shape(big["cfg"], True, True)[
+        "tile_cells"] < 27
 
 
 def test_pme_kernels_match_plain(cuda):

@@ -5,7 +5,11 @@
   (tests/test_fused.py:66-71).
 * float64: against the JAX all-pairs direct-space oracle (exact erfc) at
   1e-6 relative — the bound set by the A&S 7.1.26 erfc polynomial's
-  ~1.5e-7 absolute error (pallas_direct.py:19-22).
+  ~1.5e-7 absolute error (pallas_direct.py:19-22).  The hard shapes of
+  tests/torch_pair_cases.py (the ones the CUDA kernel is held to on the
+  card) go through the same oracle, each atom at the budget the polynomial
+  gives its own pairs (``torch_pair_cases.erfc_budget``, below 1e-3 of
+  max|F| in every case).
 """
 
 import dataclasses
@@ -27,6 +31,8 @@ from nonbondedslicing_tpu_torch.ops import fused as tfused
 from nonbondedslicing_tpu_torch.ops import params as tparams
 
 from tests.test_torch_plan import both_plans, jax_data_np, pair_system
+from torch_pair_cases import (PAIR_CASES, erfc_budget,
+                              pair_case_arrays, pair_case_slots)
 
 torch.set_num_threads(2)
 
@@ -84,7 +90,8 @@ def test_plain_pair_matches_pallas_column_kernel(ewald, switching, energies):
     st = s["st"]
     forces, moments = cuda_direct.pair_column(
         s["slot_pos"], st["slot_par"], st["slot_sub"], st["table"],
-        st["sexcl"], s["lam_c_nn"], s["lam_v_nn"], s["box"], cfg, energies)
+        st["sexcl"], s["lam_c_nn"], s["lam_v_nn"], s["box"], cfg, energies,
+        s["plan_t"].num_particles)
     assert (moments is None) == (not energies)
 
     # the same slots in the JAX kernel's feature-major layout
@@ -127,7 +134,8 @@ def test_plain_pair_f64_matches_all_pairs_oracle(ewald, switching):
     st = s["st"]
     forces, moments = cuda_direct.pair_column(
         s["slot_pos"], st["slot_par"], st["slot_sub"], st["table"],
-        st["sexcl"], s["lam_c_nn"], s["lam_v_nn"], s["box"], cfg, True)
+        st["sexcl"], s["lam_c_nn"], s["lam_v_nn"], s["box"], cfg, True,
+        s["plan_t"].num_particles)
     f_t = forces.transpose(1, 2).reshape(-1, 3)[st["inv_slots"]].numpy()
     e_t = _slice_energies(moments.numpy(), cfg.nsub)
 
@@ -150,3 +158,45 @@ def test_plain_pair_f64_matches_all_pairs_oracle(ewald, switching):
                                atol=1e-6 * np.abs(f_o).max())
     np.testing.assert_allclose(e_t, e_o, rtol=0,
                                atol=1e-6 * (np.abs(e_o).max() + 1.0))
+
+
+def oracle_direct_space(arrays, positions):
+    """(slice energies (S, 2), forces (N, 3)) of a hard-shape case from the
+    JAX all-pairs direct-space function (exact erfc), in float64."""
+    cfg = arrays["cfg"]
+    ewald = cfg.mode == cuda_direct.MODE_EWALD
+    nsub = cfg.nsub
+    oracle = jdirect.make_direct_space(
+        mode=jdirect.EWALD_DIRECT if ewald else jdirect.CUTOFF, periodic=True,
+        cutoff=cfg.cutoff, krf=cfg.krf, crf=cfg.crf,
+        use_switch=cfg.use_switch, switch_distance=cfg.switch_distance,
+        ewald_alpha=cfg.ewald_alpha, num_slices=nsub * (nsub + 1) // 2)
+    e_o, f_o = oracle(
+        jnp.asarray(positions), jnp.asarray(arrays["box"]),
+        jnp.asarray(arrays["charge"]), jnp.asarray(arrays["sig_half"]),
+        jnp.asarray(arrays["eps2"]), jnp.asarray(arrays["subsets"]),
+        jnp.asarray(arrays["exclusion_list"]), arrays["slice_table"],
+        jnp.asarray(arrays["lam_c"]), jnp.asarray(arrays["lam_v"]))
+    return np.asarray(e_o), np.asarray(f_o)
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_plain_pair_f64_hard_shapes_match_all_pairs_oracle(case):
+    arrays = pair_case_arrays(case)
+    cfg = arrays["cfg"]
+    n = arrays["charge"].shape[0]
+    slots = pair_case_slots(arrays, False, "cpu", torch.float64)
+    forces, moments = cuda_direct.pair_column(*slots["args"], True, n)
+    f_t = forces.transpose(1, 2).reshape(-1, 3)[slots["inv_slots"]].numpy()
+    e_t = _slice_energies(moments.numpy(), cfg.nsub)
+    e_o, f_o = oracle_direct_space(arrays, arrays["wrapped"])
+    assert np.abs(f_o).max() > 1.0
+    # the erfc polynomial's budget; 1e-9 relative for the float64 sums
+    f_budget, e_budget = erfc_budget(arrays)
+    assert f_budget.max() <= 1e-3 * np.abs(f_o).max()
+    assert np.all(np.abs(f_t - f_o) <= f_budget + 1e-9 * np.abs(f_o).max())
+    np.testing.assert_allclose(
+        e_t, e_o, rtol=0, atol=e_budget + 1e-9 * (np.abs(e_o).max() + 1.0))
+    # pad rows get no force
+    pads = (slots["args"][3] >= n)[:, None, :].expand_as(forces)
+    assert not forces[pads].any()

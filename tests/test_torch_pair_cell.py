@@ -15,6 +15,11 @@ minimum-image deltas of those excluded pairs differ.
   (``engine.make_compute(..., neighbor="all_pairs")``, exact erfc and erf,
   which includes the exclusion corrections) at 1e-6 of max|F|: the A&S
   7.1.26 polynomial's ~1.5e-7 absolute error, as in test_torch_fused.py.
+  The hard shapes of tests/torch_pair_cases.py (the ones the CUDA kernel is
+  held to on the card) go through the JAX all-pairs direct-space function
+  plus ``bonded.exclusion_corrections``, each atom at the budget the
+  polynomial gives its own pairs (``torch_pair_cases.erfc_budget``, below
+  1e-3 of max|F| in every case).
 """
 
 import jax.numpy as jnp
@@ -24,6 +29,7 @@ import torch
 
 import nonbondedslicing_tpu as nbs
 import nonbondedslicing_tpu_torch as nbt
+from nonbondedslicing_tpu.ops import bonded as jbonded
 from nonbondedslicing_tpu.ops import direct as jdirect
 from nonbondedslicing_tpu.ops import engine as jengine
 from nonbondedslicing_tpu.ops import fused as jfused
@@ -38,8 +44,10 @@ from nonbondedslicing_tpu_torch.ops import params as tparams
 from nonbondedslicing_tpu_torch.ops import plan as tplan
 from nonbondedslicing_tpu_torch.utils.constants import ONE_4PI_EPS0
 
-from tests.test_torch_pair import _slice_energies
+from tests.test_torch_pair import _slice_energies, oracle_direct_space
 from tests.test_torch_plan import jax_data_np, pair_system
+from torch_pair_cases import (PAIR_CASES, erfc_budget,
+                              pair_case_arrays, pair_case_slots)
 
 torch.set_num_threads(2)
 
@@ -184,3 +192,38 @@ def test_plain_pair_cell_f64_matches_all_pairs_oracle(periodic):
     bound = 1.5e-7 * ONE_4PI_EPS0 * np.sum(
         np.abs(q[:, None] * q[None, :])[near] / r[near]) / 2
     np.testing.assert_allclose(e_t, e_o, rtol=0, atol=bound)
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_plain_pair_cell_f64_hard_shapes_match_all_pairs_oracle(case):
+    arrays = pair_case_arrays(case)
+    cfg = arrays["cfg"]
+    n = arrays["charge"].shape[0]
+    slots = pair_case_slots(arrays, True, "cpu", torch.float64)
+    forces, moments = cuda_direct.pair_cell(*slots["args"], True, n)
+    f_t = forces.transpose(1, 2).reshape(-1, 3)[slots["inv_slots"]].numpy()
+    e_t = _slice_energies(moments.numpy(), cfg.nsub)
+
+    # raw positions: some atoms sit in other images of the box
+    e_o, f_o = oracle_direct_space(arrays, arrays["raw"])
+    if cfg.mode == cuda_direct.MODE_EWALD:
+        e_x, f_x = jbonded.exclusion_corrections(
+            jnp.asarray(arrays["raw"]), jnp.asarray(arrays["box"]),
+            jnp.asarray(arrays["exclusion_pairs"]),
+            jnp.asarray(arrays["charge"]), jnp.asarray(arrays["sig_half"]),
+            jnp.asarray(arrays["eps2"]), jnp.asarray(arrays["subsets"]),
+            arrays["slice_table"], jnp.asarray(arrays["lam_c"]),
+            jnp.asarray(arrays["lam_v"]), alpha=cfg.ewald_alpha,
+            periodic_exceptions=cfg.exceptions_periodic, ljpme=False,
+            dispersion_alpha=0.0, num_slices=e_o.shape[0], num_particles=n)
+        e_o = e_o + np.asarray(e_x)
+        f_o = f_o + np.asarray(f_x)
+    assert np.abs(f_o).max() > 1.0
+    # the erfc polynomial's budget; 1e-9 relative for the float64 sums
+    f_budget, e_budget = erfc_budget(arrays)
+    assert f_budget.max() <= 1e-3 * np.abs(f_o).max()
+    assert np.all(np.abs(f_t - f_o) <= f_budget + 1e-9 * np.abs(f_o).max())
+    np.testing.assert_allclose(
+        e_t, e_o, rtol=0, atol=e_budget + 1e-9 * (np.abs(e_o).max() + 1.0))
+    pads = (slots["args"][3] >= n)[:, None, :].expand_as(forces)
+    assert not forces[pads].any()

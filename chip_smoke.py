@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Two paths through make_md_step, both at full width:
+Two systems through make_md_step, both at full width, under PME and under
+LJPME:
 
 * the benchmark's MD step (bench.py): 7,763 rigid 3-site waters (23,289
   atoms) in a 6.16 nm box, 3 subsets and two lambda scaling parameters, PME
@@ -19,7 +20,12 @@ Two paths through make_md_step, both at full width:
   constrainer.
 
 Both systems are built through the port's force/System API (bench.py
-itself imports the JAX package).
+itself imports the JAX package).  Under LJPME (port_systems.py,
+method="LJPME": the dispersion Ewald sum at the same cutoff and tolerance,
+alpha 2.92, a 28-point dispersion grid aligned to the bricks as 30) both
+pair kernels add the real-space dispersion terms (B4 also backs out the
+excluded pairs' reciprocal dispersion) and the spread and interpolation
+kernels run a second time on the dispersion grid with per-slot C6 weights.
 
 Phases, each printed on its own line; any failure exits non-zero before
 the last line:
@@ -52,12 +58,24 @@ the last line:
    against the same CPU float64 references; and the benchmark's MD through
    make_md_step(pme_pipeline="grid"), one warm-up chunk and three timed
    chunks, with the window kernels launched on every step and the
-   whole-grid float kernels never, its ms/step beside phase 5's.
+   whole-grid float kernels never, its ms/step beside phase 5's;
+8. LJPME: the rigid-water box's plan (its skin as under PME; the window
+   pipeline refused, 5 dispersion-grid points a brick), the LJPME variants
+   of pair_column (force-only and energies) against the plain twin, the
+   spread (float and double) and interpolation kernels with C6 weights on
+   the dispersion grid against theirs, the card-f32 vs CPU-f64 evaluations
+   of phase 4, and make_md_step: one warm-up chunk and three timed chunks,
+   the dispersion pass launched as often as the Coulomb one; then the
+   solute box under LJPME: the LJPME variants of pair_cell and the
+   dispersion pass's kernels at its shapes against their twins, and the
+   evaluations with energies and force-only against CPU f64 (dE/dlambda_vdw
+   and dE/dlambda_elec included), counted; no MD chunks.
 
 Both systems come from port_systems.py.  The line before the last is a
-JSON object of the kernels, one entry per kernel and path ("rigid" or
-"solute"): launches in that path's run (the MD runs of phases 5, 6 and 7;
-the solute box's evaluation of phase 7), max abs error against the plain
+JSON object of the kernels, one entry per kernel and path ("rigid",
+"solute", "rigid_ljpme" or "solute_ljpme"): launches in that path's run
+(the MD runs of phases 5, 6, 7 and 8; the solute box's evaluations of
+phases 7 and 8), max abs error against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
 operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
 tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
@@ -88,13 +106,14 @@ CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
 SOLUTE_TIMED_CHUNKS = 3
 GRID_TIMED_CHUNKS = 3
+LJPME_TIMED_CHUNKS = 3
 BACKLOG_MS = 1.0          # see cuda_ms
 
 # tolerances (kernel vs plain twin on the card; card f32 vs CPU f64)
 TOL_FORCE = 2e-5          # of max|F| + 1
 TOL_ENERGY = 1e-5         # of max|E| + 1, after the f64 reduction
 TOL_GRID = 2e-5           # of the spread grid's max
-TOL_GRID64 = 1e-7         # of the max, the double spread (2^-32 fixed point)
+TOL_GRID64 = 1e-7         # of the max, the double spread (2^-40 fixed point)
 TOL_GRID_SUM = 1e-6       # relative, a subset's charge on either design's grid
 TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
@@ -112,6 +131,10 @@ PAIR_ENERGY_OPS = 9     # ... and its two energies (pair_common.cuh)
 MIN_IMAGE_OPS = 21      # ... and its minimum image (pair_cell.cu)
 EXCL_OPS = 45           # an excluded pair's Ewald correction, force
 EXCL_ENERGY_OPS = 5     # ... and its energy (pair_cell.cu)
+LJPME_PAIR_OPS = 25     # LJPME: a pair's c6 product and dispersion force
+LJPME_PAIR_ENERGY_OPS = 16   # ... its dispersion energy and shift
+LJPME_EXCL_OPS = 26     # ... an excluded pair's dispersion back-out, force
+LJPME_EXCL_ENERGY_OPS = 4    # ... and energy (pair_common.cuh, dispersion)
 SPREAD_OPS = 466        # a charged atom: coordinates, 3 splines, 125 weights
 GRID_POINT_OPS = 2      # a grid point: fixed point to float (pme_spread.cu)
 INTERP_OPS = 935        # a charged atom: splines and derivatives, 125-point
@@ -119,22 +142,17 @@ INTERP_OPS = 935        # a charged atom: splines and derivatives, 125-point
 FOLD_OPS = 1            # a window point beyond a grid point's first: one add
 
 # the port's kernels: launch-count key -> (source, the TPU kernel's
-# pallas_call it replaces)
-KERNELS = {
+# pallas_call it replaces); a key's "_ljpme" and "_dispersion" variants
+# are LJPME's, "_energies" the variants of evaluations with energies
+_SOURCES = {
     "pair_column": ("csrc/pair_column.cu",
                     "nonbondedslicing_tpu/ops/pallas_direct.py:609"),
-    "pair_column_energies": ("csrc/pair_column.cu",
-                             "nonbondedslicing_tpu/ops/pallas_direct.py:609"),
-    "pme_spread": ("csrc/pme_spread.cu",
-                   "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
-    "pme_spread_energies": ("csrc/pme_spread.cu",
-                            "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
-    "pme_interp": ("csrc/pme_interp.cu",
-                   "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
     "pair_cell": ("csrc/pair_cell.cu",
                   "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
-    "pair_cell_energies": ("csrc/pair_cell.cu",
-                           "nonbondedslicing_tpu/ops/pallas_direct.py:377"),
+    "pme_spread": ("csrc/pme_spread.cu",
+                   "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
+    "pme_interp": ("csrc/pme_interp.cu",
+                   "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
     "pme_spread_windows": ("csrc/pme_spread_windows.cu",
                            "nonbondedslicing_tpu/ops/pallas_pme.py:156"),
     "pme_fold": ("csrc/pme_fold.cu",
@@ -144,8 +162,24 @@ KERNELS = {
     "pme_interp_windows": ("csrc/pme_interp_windows.cu",
                            "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
 }
+KERNELS = {
+    key: _SOURCES[base]
+    for base, variants in (
+        ("pair_column", ("", "_energies", "_ljpme", "_ljpme_energies")),
+        ("pair_cell", ("", "_energies", "_ljpme", "_ljpme_energies")),
+        ("pme_spread", ("", "_energies", "_dispersion",
+                        "_dispersion_energies")),
+        ("pme_interp", ("", "_dispersion")),
+        ("pme_spread_windows", ("", "_dispersion")),
+        ("pme_fold", ("", "_dispersion")),
+        ("pme_extract", ("", "_dispersion")),
+        ("pme_interp_windows", ("", "_dispersion")))
+    for key in (base + v for v in variants)}
 WINDOW_KERNELS = ("pme_spread_windows", "pme_fold", "pme_extract",
                   "pme_interp_windows")
+DISPERSION_KERNELS = ("pme_spread_dispersion",
+                      "pme_spread_dispersion_energies",
+                      "pme_interp_dispersion")
 # the entries of the kernels line: (name, kernel, path, run), each kernel
 # held against its plain twin at its path's shapes and counted in the run
 # of that path that goes through it
@@ -161,7 +195,16 @@ ENTRIES = (
     ("pme_spread_energies_solute", "pme_spread_energies", "solute", "solute"),
     ("pme_interp_solute", "pme_interp", "solute", "solute"),
 ) + tuple((k, k, "rigid", "rigid_grid") for k in WINDOW_KERNELS) + tuple(
-    (k + "_solute", k, "solute", "solute_grid") for k in WINDOW_KERNELS)
+    (k + "_solute", k, "solute", "solute_grid") for k in WINDOW_KERNELS) + (
+    ("pair_column_ljpme", "pair_column_ljpme", "rigid_ljpme", "rigid_ljpme"),
+    ("pair_column_ljpme_energies", "pair_column_ljpme_energies",
+     "rigid_ljpme", "rigid_ljpme"),
+) + tuple((k, k, "rigid_ljpme", "rigid_ljpme") for k in DISPERSION_KERNELS) + (
+    ("pair_cell_ljpme", "pair_cell_ljpme", "solute_ljpme", "solute_ljpme"),
+    ("pair_cell_ljpme_energies", "pair_cell_ljpme_energies", "solute_ljpme",
+     "solute_ljpme"),
+) + tuple((k + "_solute", k, "solute_ljpme", "solute_ljpme")
+          for k in DISPERSION_KERNELS)
 # the kernels each run must launch; it must launch no other
 RUN_KERNELS = {
     "rigid": {"pair_column", "pair_column_energies", "pme_spread",
@@ -172,6 +215,12 @@ RUN_KERNELS = {
                    "pme_spread_energies", *WINDOW_KERNELS},
     "solute_grid": {"pair_cell", "pair_cell_energies", "pme_spread_energies",
                     *WINDOW_KERNELS},
+    "rigid_ljpme": {"pair_column_ljpme", "pair_column_ljpme_energies",
+                    "pme_spread", "pme_spread_energies", "pme_interp",
+                    *DISPERSION_KERNELS},
+    "solute_ljpme": {"pair_cell_ljpme", "pair_cell_ljpme_energies",
+                     "pme_spread", "pme_spread_energies", "pme_interp",
+                     *DISPERSION_KERNELS},
 }
 
 
@@ -311,11 +360,18 @@ def pair_counts(slot_pos, slot_ids, slot_excl, box, cutoff, n_real, counts):
 def pair_bound(pc, energies, n_pair, n_excl, cell_kernel):
     """Bound of one pair-kernel call: the pairs within the cutoff (and, for
     the cell kernel, their minimum image and the excluded pairs'
-    corrections), and the slot tensors read and the outputs written once."""
+    corrections; under LJPME the dispersion terms of both), and the slot
+    tensors read and the outputs written once."""
     ops = n_pair * (PAIR_OPS + (PAIR_ENERGY_OPS if energies else 0))
+    if pc.ljpme:
+        ops += n_pair * (LJPME_PAIR_OPS
+                         + (LJPME_PAIR_ENERGY_OPS if energies else 0))
     if cell_kernel:
         ops += n_pair * MIN_IMAGE_OPS
         ops += n_excl * (EXCL_OPS + (EXCL_ENERGY_OPS if energies else 0))
+        if pc.ljpme:
+            ops += n_excl * (LJPME_EXCL_OPS
+                             + (LJPME_EXCL_ENERGY_OPS if energies else 0))
     g, C, nsub = pc.n_cells, pc.capacity, pc.nsub
     nbytes = (4 * g * C * (3 + 3 + 1 + 1 + pc.emax) + 4 * 2 * nsub * nsub
               + 4 * 9 + 4 * g * 3 * C
@@ -390,36 +446,40 @@ def cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np):
     return energy, f, engine_mod.parameter_derivatives(e, plan.deriv_mask)
 
 
-def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
+def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
+                      dispersion=False):
     """The spread kernel, its double variant (energy evaluations) and the
     interpolation kernel against their plain twins on one path's slot
     tensors: the grid within TOL_GRID of its max and bitwise repeatable, the
     double grid within TOL_GRID64, the forces within TOL_FORCE; CUDA-event
     times and the bound of each.  ``names`` are the three entries' names.
-    Returns their results."""
+    With ``dispersion``, LJPME's pass: C6 weights on the dispersion grid
+    with its convolution kernel (``lam_nn`` the vdW lambdas).  Returns their
+    results."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_pme
     from nonbondedslicing_tpu_torch.ops import pme as pme_mod
     from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
     spread_name, spread64_name, interp_name = names
     recip = recip_box_vectors(box)
-    grid_shape = cfg["pme_grid"]
-    nsub = lam_c_nn.shape[0]
+    grid_shape = cfg["dispersion_grid" if dispersion else "pme_grid"]
+    weight = st["slot_c6" if dispersion else "slot_q"]
+    nsub = lam_nn.shape[0]
     g, _, C = slot_pos.shape
     n_grid = nsub * int(np.prod(grid_shape))
-    n_charged = int((st["slot_q"] != 0).sum())
-    spread_args = (slot_pos, st["slot_q"], st["slot_sub"], recip, grid_shape,
-                   nsub)
-    grid_k = cuda_pme.pme_spread(*spread_args)
+    n_charged = int((weight != 0).sum())
+    spread_args = (slot_pos, weight, st["slot_sub"], recip, grid_shape, nsub)
+    kw = dict(dispersion=dispersion)
+    grid_k = cuda_pme.pme_spread(*spread_args, **kw)
     grid_p = cuda_pme.pme_spread_plain(*spread_args)
     torch.cuda.synchronize()
     err = float((grid_k - grid_p).abs().max())
     gmax = float(grid_p.abs().max())
     check(err <= TOL_GRID * gmax, f"{spread_name}: grid max|d| {err:.3e} <= "
           f"{TOL_GRID} * max {gmax:.3f}")
-    check(torch.equal(grid_k, cuda_pme.pme_spread(*spread_args)),
+    check(torch.equal(grid_k, cuda_pme.pme_spread(*spread_args, **kw)),
           f"{spread_name}: bitwise repeatable (fixed-point adds)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_spread(*spread_args),
+    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_spread(*spread_args, **kw),
                               lambda: cuda_pme.pme_spread_plain(*spread_args),
                               reps)
     print(f"{spread_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -428,9 +488,9 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 4 * 9 + 4 * n_grid)
 
-    spread64_args = (slot_pos, st["slot_q"], st["slot_sub"],
+    spread64_args = (slot_pos, weight, st["slot_sub"],
                      recip_box_vectors(box.double()), grid_shape, nsub)
-    grid_k64 = cuda_pme.pme_spread(*spread64_args, double=True)
+    grid_k64 = cuda_pme.pme_spread(*spread64_args, double=True, **kw)
     grid_p64 = cuda_pme.pme_spread_plain(*spread64_args, double=True)
     torch.cuda.synchronize()
     err = float((grid_k64 - grid_p64).abs().max())
@@ -439,7 +499,7 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
           f"{spread64_name}: grid max|d| {err:.3e} <= {TOL_GRID64} * max "
           f"{gmax:.3f}")
     ms, plain_ms = timed_pair(
-        lambda: cuda_pme.pme_spread(*spread64_args, double=True),
+        lambda: cuda_pme.pme_spread(*spread64_args, double=True, **kw),
         lambda: cuda_pme.pme_spread_plain(*spread64_args, double=True), reps)
     print(f"{spread64_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     spread64 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -447,15 +507,19 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 8 * 9 + 8 * n_grid, PEAK_FP64_FLOPS)
 
-    eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
-        grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
-        device=slot_pos.device).to(torch.float32)
+    if dispersion:
+        eterm = pme_mod.dispersion_eterm_np(grid_shape, cfg["dpme_moduli"],
+                                            plan.box0, plan.dispersion_alpha)
+    else:
+        eterm = pme_mod.coulomb_eterm_np(grid_shape, cfg["pme_moduli"],
+                                         plan.box0, plan.ewald_alpha)
+    eterm = torch.as_tensor(eterm, device=slot_pos.device).to(torch.float32)
     spec = torch.fft.rfftn(grid_k, dim=(1, 2, 3))
     phi = torch.fft.irfftn(
-        torch.einsum("st,txyk->sxyk", lam_c_nn.to(spec.dtype), spec * eterm),
+        torch.einsum("st,txyk->sxyk", lam_nn.to(spec.dtype), spec * eterm),
         s=tuple(grid_shape), dim=(1, 2, 3), norm="forward").contiguous()
-    interp_args = (phi, slot_pos, st["slot_q"], st["slot_sub"], recip)
-    f_k = cuda_pme.pme_interp(*interp_args)
+    interp_args = (phi, slot_pos, weight, st["slot_sub"], recip)
+    f_k = cuda_pme.pme_interp(*interp_args, **kw)
     f_p = cuda_pme.pme_interp_plain(*interp_args)
     torch.cuda.synchronize()
     err = float((f_k - f_p).abs().max())
@@ -463,7 +527,7 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_c_nn, reps):
     check(err <= TOL_FORCE * (fmax + 1.0),
           f"{interp_name}: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
           f"(max|F| {fmax:.1f} + 1)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_interp(*interp_args),
+    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_interp(*interp_args, **kw),
                               lambda: cuda_pme.pme_interp_plain(*interp_args),
                               reps)
     print(f"{interp_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -929,12 +993,13 @@ def main():
     s_lam = slice_lambdas(s_plan.lam_source, s_gvals)
     s_sl_tab = torch.as_tensor(s_plan.slice_table, dtype=torch.int64,
                                device=dev)
-    n_pair, n_excl = pair_counts(s_slot_pos, s_st["table"], s_st["sexcl"],
-                                 box, s_plan.cutoff, s_n, s_pc.counts)
-    check(n_excl == len(s_plan.exclusion_pairs),
+    s_n_pair, s_n_excl = pair_counts(s_slot_pos, s_st["table"],
+                                     s_st["sexcl"], box, s_plan.cutoff, s_n,
+                                     s_pc.counts)
+    check(s_n_excl == len(s_plan.exclusion_pairs),
           f"solute: all {len(s_plan.exclusion_pairs)} excluded pairs lie in "
-          f"the 27-cell neighbourhoods ({n_excl} found)")
-    print(f"bound inputs: {n_pair} pairs within the cutoff, {n_excl} "
+          f"the 27-cell neighbourhoods ({s_n_excl} found)")
+    print(f"bound inputs: {s_n_pair} pairs within the cutoff, {s_n_excl} "
           f"excluded pairs")
     s_lam_c_nn = s_lam[:, 0][s_sl_tab].contiguous()
     for name, energies in (("pair_cell", False),
@@ -946,7 +1011,7 @@ def main():
             name, cuda_direct.pair_cell, cuda_direct.pair_cell_plain, args,
             s_pc, reps, cell_kernel=True)
         results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
-            s_pc, energies, n_pair, n_excl, cell_kernel=True)
+            s_pc, energies, s_n_pair, s_n_excl, cell_kernel=True)
     results.update(pme_kernel_checks(
         ("pme_spread_solute", "pme_spread_energies_solute",
          "pme_interp_solute"), s_slot_pos, s_st, box,
@@ -1049,6 +1114,113 @@ def main():
     print(f"solute grid evaluation: launches {launches}")
     check_launches("solute grid evaluation", "solute_grid", launches)
     run_launches["solute_grid"] = launches
+
+    # ---- 8. LJPME: the dispersion terms of B1 and B4, the dispersion pass
+    # of B2 and B3
+    t0 = time.time()
+    l_system, l_force, _, _ = build_system(nbt, "LJPME")
+    l_plan = plan_mod.build_plan(l_force, l_system)
+    l_prepare, l_apply, l_cfg = fused_mod.make_fused_engine(
+        l_plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    l_pc = l_cfg["pair"]
+    print(f"ljpme: dispersion alpha {l_plan.dispersion_alpha:.4f}, grid "
+          f"{l_plan.dispersion_grid} aligned to {l_cfg['dispersion_grid']}, "
+          f"PME grid {l_cfg['pme_grid']}, skin {l_cfg['skin']:.4f} nm, "
+          f"built in {time.time() - t0:.1f} s")
+    check(l_pc.ljpme and l_cfg["skin"] == cfg["skin"],
+          f"ljpme: the pair kernels take LJPME; the skin is PME's "
+          f"{cfg['skin']:.4f} nm (two dispersion-grid spacings do not bind)")
+    try:
+        fused_mod.make_fused_engine(l_plan, cell_capacity=capacity,
+                                    target_skin=DEFAULT_SKIN,
+                                    pme_pipeline="grid")
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check("stencil" in refused, "ljpme: the window pipeline refuses 5 "
+          "dispersion-grid points a brick and names the default one")
+    l_data = engine_mod.plan_data(l_plan, device=dev, dtype=f32)
+    l_st = l_prepare(pos, box, gvals, l_data)
+    check(torch.equal(l_st["slots"], st["slots"]),
+          "ljpme: the benchmark's slot table")
+    for name, energies in (("pair_column_ljpme", False),
+                           ("pair_column_ljpme_energies", True)):
+        args = (slot_pos, l_st["slot_par"], l_st["slot_sub"], l_st["table"],
+                l_st["sexcl"], lam_c_nn, lam_v_nn, box, l_pc, energies, n)
+        results[name] = pair_kernel_check(
+            name, cuda_direct.pair_column, cuda_direct.pair_column_plain,
+            args, l_pc, reps, cell_kernel=False)
+        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
+            l_pc, energies, n_pair, 0, cell_kernel=False)
+    results.update(pme_kernel_checks(DISPERSION_KERNELS, slot_pos, l_st, box,
+                                     l_cfg, l_plan, lam_v_nn, reps,
+                                     dispersion=True))
+    evaluation_check("ljpme evaluation", l_plan, capacity, l_apply, l_st,
+                     pos, box, gvals, l_data, pos_np, box_np, np.ones(2))
+
+    def make_ljpme_run(cap, reuse):
+        return make_md_step(l_plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints)
+
+    reset_launches()
+    p, v, energy, chunk_s, config = run_md(
+        make_ljpme_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, l_data,
+        LJPME_TIMED_CHUNKS, nbt.OpenMMException)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"ljpme md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
+          f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
+          f"{launches}")
+    check_launches("ljpme md", "rigid_ljpme", launches)
+    check(all(launches[k + "_dispersion" + e] == launches[k + e]
+              for k, e in (("pme_spread", ""), ("pme_spread", "_energies"),
+                           ("pme_interp", ""))),
+          "ljpme md: the dispersion pass launched with every Coulomb pass "
+          f"({launches['pme_spread_dispersion']} spreads)")
+    ms_ljpme = md_checks("ljpme md", p, v, energy, masses, 0,
+                         3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
+    print(f"ljpme: {np.median(ms_ljpme):.3f} ms/step against PME's "
+          f"{np.median(ms_stencil):.3f} in this run ({n} atoms, {card})")
+    run_launches["rigid_ljpme"] = launches
+
+    # the solute box under LJPME: B4's dispersion terms and back-out
+    t0 = time.time()
+    ls_out = build_solute_system(nbt, pos_np, box_len, "LJPME")
+    ls_plan = plan_mod.build_plan(ls_out[1], ls_out[0])
+    ls_prepare, ls_apply, ls_cfg = fused_mod.make_fused_engine(
+        ls_plan, cell_capacity=s_capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    ls_pc = ls_cfg["pair"]
+    ls_data = engine_mod.plan_data(ls_plan, device=dev, dtype=f32)
+    ls_st = ls_prepare(s_pos, box, s_gvals, ls_data)
+    print(f"solute ljpme: dispersion grid {ls_cfg['dispersion_grid']}, "
+          f"built in {time.time() - t0:.1f} s")
+    check(ls_pc.ljpme and torch.equal(ls_st["slots"], s_st["slots"]),
+          "solute ljpme: the cell kernel under LJPME, the solute's slot table")
+    s_lam_v_nn = s_lam[:, 1][s_sl_tab].contiguous()
+    for name, energies in (("pair_cell_ljpme", False),
+                           ("pair_cell_ljpme_energies", True)):
+        args = (s_slot_pos, ls_st["slot_par"], ls_st["slot_sub"],
+                ls_st["table"], ls_st["sexcl"], s_lam_c_nn, s_lam_v_nn, box,
+                ls_pc, energies, s_n)
+        results[name] = pair_kernel_check(
+            name, cuda_direct.pair_cell, cuda_direct.pair_cell_plain, args,
+            ls_pc, reps, cell_kernel=True)
+        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
+            ls_pc, energies, s_n_pair, s_n_excl, cell_kernel=True)
+    results.update(pme_kernel_checks(
+        tuple(k + "_solute" for k in DISPERSION_KERNELS), s_slot_pos, ls_st,
+        box, ls_cfg, ls_plan, s_lam_v_nn, reps, dispersion=True))
+    reset_launches()
+    evaluation_check("solute ljpme evaluation", ls_plan, s_capacity,
+                     ls_apply, ls_st, s_pos, box, s_gvals, ls_data, s_pos_np,
+                     box_np, ls_plan.global_defaults)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"solute ljpme evaluation: launches {launches}")
+    check_launches("solute ljpme evaluation", "solute_ljpme", launches)
+    run_launches["solute_ljpme"] = launches
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

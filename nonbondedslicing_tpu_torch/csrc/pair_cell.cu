@@ -15,7 +15,9 @@
 // * for every excluded pair in the 27-cell neighbourhood, whatever its
 //   distance, the Ewald exclusion correction (pallas_direct.py:229-289):
 //   -erf(alpha r) k qq / r, its Taylor limit when erf(alpha r) <= 1e-6, on
-//   the unwrapped delta unless exceptions are periodic.
+//   the unwrapped delta unless exceptions are periodic; with LJPME also the
+//   back-out of the pair's reciprocal dispersion term
+//   (pallas_direct.py:262-286), where that same erf exceeds 1e-6.
 //
 // What it computes is B1's (pair_column.cu): a FULL shell of 27 neighbour
 // cells, row forces only, no atomics, energies weighted 1/2.  Each excluded
@@ -71,7 +73,7 @@ using namespace nbs_pair;
 constexpr float kWiden = 1.01f;     // phase 1 tests r^2 < kWiden * cutoff^2
 constexpr int kExcludedFlag = 1 << 15;   // of a queue entry
 
-template <bool ENERGIES>
+template <bool ENERGIES, bool LJPME>
 __global__ void __launch_bounds__(32 * kWarps, 2)
 pair_cell_kernel(const float* __restrict__ pos,
                  const float* __restrict__ par,
@@ -124,6 +126,7 @@ pair_cell_kernel(const float* __restrict__ pos,
             }
             const Row row = load_row(pos, par, sub, excl, my_excl, cell, t, p);
             const int self = kHome << 10 | t;   // the row among the staged
+            const float row_c6 = LJPME ? c6_of(row.sig, row.eps) : 0.f;
             // the row as phase 1 sees it: in the block's frame, if any
             float rx = row.x, ry = row.y, rz = row.z;
             if (framed) pbox.to_frame(s.frame, rx, ry, rz);
@@ -179,21 +182,31 @@ pair_cell_kernel(const float* __restrict__ pos,
                         ? qq * rinvx * rinvx * rinvx
                           * (erf_ar - kTwoOverSqrtPi * arx * gauss)
                         : 0.f;
-                    const float factor_x = -lam_cp * dedr_x;
+                    float factor_x = -lam_cp * dedr_x;
+                    float e_vx = 0.f;
+                    if (LJPME && big) {
+                        // the partner's c6 from what was gathered
+                        const Dispersion d =
+                            dispersion(row_c6 * c6_of(sgj, epj), r2x * rinvx,
+                                       rinvx, p.dispersion_alpha);
+                        factor_x += s.lam_v[row.sub * nsub + sj] * d.dedr;
+                        e_vx = d.e;
+                    }
                     acc.fx += factor_x * ux;
                     acc.fy += factor_x * uy;
                     acc.fz += factor_x * uz;
                     if (ENERGIES) {
                         acc.add_half(sj, big ? -qq * rinvx * erf_ar
                                              : -p.alpha * kTwoOverSqrtPi * qq,
-                                     0.f);
+                                     e_vx);
                     }
                     return;
                 }
                 const float r2 = r2_rn(ddx, ddy, ddz);
                 if (r2 >= p.cutoff2) return;
-                const PairTerms pt = pair_terms(r2, qq, row.sig + sgj,
-                                                row.eps * epj, p);
+                const PairTerms pt = pair_terms<LJPME>(
+                    r2, qq, row.sig + sgj, row.eps * epj,
+                    LJPME ? row_c6 * c6_of(sgj, epj) : 0.f, p);
                 const float factor =
                     s.lam_v[row.sub * nsub + sj] * pt.dedr_vdw
                     + lam_cp * pt.dedr_coul;
@@ -279,20 +292,25 @@ extern "C" int nbs_pair_cell(const void* pos, const void* par,
                              void* forces, void* moments, int ncx, int ncy,
                              int ncz, int capacity, int nsub, int emax,
                              int mode, int use_switch, int n_real,
-                             int exceptions_periodic, float cutoff,
+                             int exceptions_periodic, int ljpme, float cutoff,
                              float cutoff2, float switch_distance, float krf,
-                             float crf, float alpha, float sqrt_ke,
+                             float crf, float alpha, float dispersion_alpha,
+                             float inv_cut6, float disp_cut, float sqrt_ke,
                              int energies, void* stream) {
-    if (!shapes_ok(capacity, nsub, emax, mode)) {
+    if (!shapes_ok(capacity, nsub, emax, mode, ljpme)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const LaunchShape g = launch_shape(capacity, nsub, true, energies != 0);
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
                  n_real, g.row_blocks, g.tile_cells, g.cand_stride,
-                 cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke};
+                 cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke,
+                 dispersion_alpha, inv_cut6, disp_cut};
+    auto kernel = energies
+        ? (ljpme ? pair_cell_kernel<true, true> : pair_cell_kernel<true, false>)
+        : (ljpme ? pair_cell_kernel<false, true>
+                 : pair_cell_kernel<false, false>);
     return launch_rows(
-        energies ? pair_cell_kernel<true> : pair_cell_kernel<false>, g,
-        ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
+        kernel, g, ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
         static_cast<const float*>(pos), static_cast<const float*>(par),
         static_cast<const int*>(sub), static_cast<const int*>(ids),
         static_cast<const int*>(excl), static_cast<const float*>(lam_c),

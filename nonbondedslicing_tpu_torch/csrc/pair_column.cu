@@ -5,7 +5,8 @@
 // _make_pair_block (pallas_direct.py:64-313, here pair_common.cuh): LJ with
 // sigma/2 + sigma/2 and 2 sqrt(eps) * 2 sqrt(eps), Coulomb by reaction field
 // or Ewald erfc (the A&S 7.1.26 polynomial of pallas_direct.py:49-57), the
-// quintic switch, lambda per pair from the two atoms' subsets, and
+// quintic switch, lambda per pair from the two atoms' subsets, (LJPME) the
+// real-space dispersion term and the shift of pallas_direct.py:180-205, and
 // (ENERGIES) unscaled Coulomb / vdW energies summed per (home subset,
 // partner subset).
 //
@@ -52,7 +53,7 @@ using namespace nbs_pair;
 // exact test of phase 2 passes.
 constexpr float kWiden = 1.00001f;
 
-template <bool ENERGIES>
+template <bool ENERGIES, bool LJPME>
 __global__ void __launch_bounds__(32 * kWarps, 2)
 pair_column_kernel(const float* __restrict__ pos,
                    const float* __restrict__ par,
@@ -93,6 +94,7 @@ pair_column_kernel(const float* __restrict__ pos,
             }
             const Row row = load_row(pos, par, sub, excl, my_excl, cell, t, p);
             const int self = kHome << 10 | t;   // the row among the staged
+            const float row_c6 = LJPME ? c6_of(row.sig, row.eps) : 0.f;
             Sums acc;
             acc.clear();
             Queue queue{s.queue + warp * kQueue, 0, 0};
@@ -117,9 +119,11 @@ pair_column_kernel(const float* __restrict__ pos,
                 // excluded partner
                 bool dropped = r2 >= p.cutoff2 || where == self;
                 for (int e = 0; e < row.nex; ++e) dropped |= my_excl[e] == idj;
-                const PairTerms pt = pair_terms(r2, row.q * (qj * p.sqrt_ke),
-                                                row.sig + sgj, row.eps * epj,
-                                                p);
+                // (LJPME: the partner's c6 from the gathered sigma/2 and
+                // 2 sqrt(eps), not staged)
+                const PairTerms pt = pair_terms<LJPME>(
+                    r2, row.q * (qj * p.sqrt_ke), row.sig + sgj,
+                    row.eps * epj, LJPME ? row_c6 * c6_of(sgj, epj) : 0.f, p);
                 // selected away, not multiplied: its terms need not be
                 // finite
                 const float factor = dropped ? 0.f
@@ -170,7 +174,9 @@ pair_column_kernel(const float* __restrict__ pos,
 // sub, ids: (cells, C) int32; excl: (cells, emax, C) int32; lam_c, lam_v:
 // (nsub, nsub) float; box: (3, 3) float rows; slots whose atom index is
 // n_real or more are pads; cutoff2 is the squared cutoff rounded once to
-// float.  Writes forces (cells, 3, C) and, when energies != 0, moments
+// float.  ljpme != 0 (Ewald mode only) adds the dispersion terms of
+// dispersion_alpha, with inv_cut6 and disp_cut the constants of its energy
+// shift.  Writes forces (cells, 3, C) and, when energies != 0, moments
 // (cells * row_blocks, 2, nsub, nsub) with row_blocks from
 // nbs_pair_launch_shape.  Returns the cudaError_t of the launch.
 extern "C" int nbs_pair_column(const void* pos, const void* par,
@@ -180,20 +186,26 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
                                void* forces, void* moments, int ncx, int ncy,
                                int ncz, int capacity, int nsub, int emax,
                                int mode, int use_switch, int n_real,
-                               float cutoff, float cutoff2,
+                               int ljpme, float cutoff, float cutoff2,
                                float switch_distance, float krf, float crf,
-                               float alpha, float sqrt_ke, int energies,
-                               void* stream) {
-    if (!shapes_ok(capacity, nsub, emax, mode)) {
+                               float alpha, float dispersion_alpha,
+                               float inv_cut6, float disp_cut, float sqrt_ke,
+                               int energies, void* stream) {
+    if (!shapes_ok(capacity, nsub, emax, mode, ljpme)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const LaunchShape g = launch_shape(capacity, nsub, false, energies != 0);
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
                  n_real, g.row_blocks, g.tile_cells, g.cand_stride,
-                 cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke};
+                 cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke,
+                 dispersion_alpha, inv_cut6, disp_cut};
+    auto kernel = energies
+        ? (ljpme ? pair_column_kernel<true, true>
+                 : pair_column_kernel<true, false>)
+        : (ljpme ? pair_column_kernel<false, true>
+                 : pair_column_kernel<false, false>);
     return launch_rows(
-        energies ? pair_column_kernel<true> : pair_column_kernel<false>, g,
-        ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
+        kernel, g, ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
         static_cast<const float*>(pos), static_cast<const float*>(par),
         static_cast<const int*>(sub), static_cast<const int*>(ids),
         static_cast<const int*>(excl), static_cast<const float*>(lam_c),

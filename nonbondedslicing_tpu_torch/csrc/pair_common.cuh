@@ -3,6 +3,10 @@
 // (nonbondedslicing_tpu/ops/pallas_direct.py:64-313) for one pair, and the
 // skeleton of their design.
 //
+// LJPME is a template flag of both kernels (and of pair_terms): the PME and
+// reaction-field instantiations compile to the code they had without it,
+// and only the LJPME ones pay for the dispersion term's registers.
+//
 // The skeleton.  A block owns the rows chunk, chunk + row_blocks, ... of one
 // home cell; each of its warps takes every nwarps-th of them, one row atom
 // at a time, and the 32 lanes span that row's candidates:
@@ -68,6 +72,9 @@ struct PairParams {
     int ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch;
     int n_real, row_blocks, tile_cells, cand_stride;
     float cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke;
+    // LJPME: the dispersion alpha, 1 / cutoff^6 and the dispersion factor
+    // at the cutoff over cutoff^6 (cuda_direct.dispersion_cutoff_terms)
+    float dispersion_alpha, inv_cut6, disp_cut;
 };
 
 // How a call is cut into blocks and tiles: row_blocks blocks per home cell,
@@ -510,15 +517,48 @@ __device__ __forceinline__ float erfc_hastings(float x, float* gauss) {
     return poly * (*gauss);
 }
 
+// LJPME's c6 of an atom from its sigma/2 and 2 sqrt(eps): 8 (sigma/2)^3
+// 2 sqrt(eps); a pair's C6 is the product of its atoms'.
+__device__ __forceinline__ float c6_of(float sig_half, float eps2) {
+    return 8.f * sig_half * sig_half * sig_half * eps2;
+}
+
+struct Dispersion {
+    float e, dedr;
+};
+
+// LJPME's real-space dispersion term of a pair (pallas_direct.py:181-194):
+// the energy C6/r^6 (1 - e^-x (1 + x + x^2/2)), x = (alpha r)^2, and its
+// -dE/dr / r, 6 C6/r^8 (1 - e^-x (1 + x + x^2/2 + x^3/6)).
+__device__ __forceinline__ Dispersion dispersion(float c6ij, float r,
+                                                 float rinv, float alpha) {
+    const float dar = alpha * r;
+    const float dar2 = dar * dar;
+    const float dar4 = dar2 * dar2;
+    const float dar6 = dar4 * dar2;
+    const float rinv2 = rinv * rinv;
+    const float rinv6 = rinv2 * rinv2 * rinv2;
+    const float expd = expf(-dar2);
+    const float poly = 1.f + dar2 + 0.5f * dar4;
+    return Dispersion{c6ij * rinv6 * (1.f - expd * poly),
+                      6.f * c6ij * rinv6 * rinv2
+                          * (1.f - expd * (poly + dar6 * (1.f / 6.f)))};
+}
+
 struct PairTerms {
     float dedr_vdw, dedr_coul, e_vdw, e_coul;
 };
 
 // LJ (sigma/2 + sigma/2, 2 sqrt(eps) * 2 sqrt(eps)) and Coulomb by reaction
 // field or Ewald erfc, with the quintic switch, for one pair within the
-// cutoff.  qq carries the Coulomb constant.  Forces are dedr * delta.
+// cutoff.  qq carries the Coulomb constant.  Forces are dedr * delta.  With
+// LJPME (Ewald mode), the dispersion term of c6ij is added and the vdW
+// energy shifted by minus its LJ and dispersion values at the cutoff
+// (pallas_direct.py:180-205); under the switch the shifted total is
+// switched.
+template <bool LJPME>
 __device__ __forceinline__ PairTerms pair_terms(float r2, float qq, float sig,
-                                                float eps,
+                                                float eps, float c6ij,
                                                 const PairParams& p) {
     const float rinv = rsqrtf(r2);
     const float r = r2 * rinv;
@@ -542,6 +582,15 @@ __device__ __forceinline__ PairTerms pair_terms(float r2, float qq, float sig,
         const float erfc_ar = erfc_hastings(ar, &gauss);
         out.e_coul = qq * rinv * erfc_ar;
         out.dedr_coul = qq * rinv * rinv * rinv * (erfc_ar + kTwoOverSqrtPi * ar * gauss);
+        if (LJPME) {
+            const Dispersion d = dispersion(c6ij, r, rinv, p.dispersion_alpha);
+            out.dedr_vdw += d.dedr;
+            const float sigc2 = sig * sig;
+            const float sigc6 = sigc2 * sigc2 * sigc2;
+            out.e_vdw = out.e_vdw + d.e
+                + (eps * (1.f - sigc6 * p.inv_cut6) * sigc6 * p.inv_cut6
+                   - c6ij * p.disp_cut);
+        }
     } else {
         out.e_coul = qq * (rinv + p.krf * r2 - p.crf);
         out.dedr_coul = qq * (rinv - 2.f * p.krf * r2) * rinv * rinv;
@@ -652,10 +701,12 @@ inline int launch_rows(Kernel kernel, const LaunchShape& g, int n_cells,
     return static_cast<int>(cudaGetLastError());
 }
 
-inline bool shapes_ok(int capacity, int nsub, int emax, int mode) {
+inline bool shapes_ok(int capacity, int nsub, int emax, int mode,
+                      int ljpme = 0) {
     return capacity >= 1 && capacity <= kMaxCapacity && nsub >= 1
            && nsub <= kMaxSubsets && emax >= 0 && emax <= kMaxExclusions
-           && (mode == kModeReactionField || mode == kModeEwald);
+           && (mode == kModeReactionField || mode == kModeEwald)
+           && (!ljpme || mode == kModeEwald);
 }
 
 }  // namespace nbs_pair

@@ -9,17 +9,23 @@
 //
 // What bounds it on an H100: the 125 global atomics per atom (23,289 atoms
 // -> 2.9 M atomics on a 3 x 60^3 grid at the benchmark shapes), not the
-// spline arithmetic.  Atomics are 64-bit integer adds in 2^32 fixed point,
-// as the reference's realToFixedPoint, so the grid is bitwise repeatable
-// whatever the order of the adds; a second pass converts it to float.  Slot
-// order is cell order, so neighbouring threads hit neighbouring grid lines.
+// spline arithmetic.  Atomics are 64-bit integer adds in fixed point (2^32,
+// as the reference's realToFixedPoint, for the float variant), so the grid
+// is bitwise repeatable whatever the order of the adds; a second pass
+// converts it to float.  Slot order is cell order, so neighbouring threads
+// hit neighbouring grid lines.  The weights are any per-slot value: charges,
+// or LJPME's C6 on its dispersion grid.
 //
 // Evaluations with energies take the double variant: fractional
 // coordinates, splines and weights in double from a double reciprocal box,
-// and a double grid.  A weakly coupled slice's reciprocal energy (a
-// solute's with the water around it) is a small cross term of two large
-// charge grids, which float spline weights would blur by about as much as
-// its dE/dlambda is allowed to err.
+// and a double grid, in 2^40 fixed point.  A weakly coupled slice's
+// reciprocal energy (a solute's with the water around it) is a small cross
+// term of two large grids, which float spline weights would blur by about
+// as much as its dE/dlambda is allowed to err.  The finer step keeps the
+// double grid's rounding (about a hundred adds a point of half a step each)
+// far below 1e-7 of its largest value for weights as small as C6 (about
+// 0.05 for a water oxygen, where a grid's largest value is 0.02; 2^32 left
+// 1.3e-7); grid values up to 2^23 still fit the 64-bit adds.
 
 #include <cuda_runtime.h>
 
@@ -27,14 +33,23 @@
 
 namespace {
 
-constexpr double kFixedInv = 1.0 / 4294967296.0;       // 2^-32
-
-__device__ __forceinline__ long long to_fixed(float v) {
-    return __float2ll_rn(v * 4294967296.0f);
-}
-__device__ __forceinline__ long long to_fixed(double v) {
-    return __double2ll_rn(v * 4294967296.0);
-}
+// the fixed-point step of the float variant (2^-32) and the double (2^-40)
+template <typename Real>
+struct Fixed;
+template <>
+struct Fixed<float> {
+    static constexpr double kInv = 1.0 / 4294967296.0;
+    static __device__ __forceinline__ long long to(float v) {
+        return __float2ll_rn(v * 4294967296.0f);
+    }
+};
+template <>
+struct Fixed<double> {
+    static constexpr double kInv = 1.0 / 1099511627776.0;
+    static __device__ __forceinline__ long long to(double v) {
+        return __double2ll_rn(v * 1099511627776.0);
+    }
+};
 
 template <typename Real>
 __global__ void spread_kernel(const float* __restrict__ pos,
@@ -77,7 +92,7 @@ __global__ void spread_kernel(const float* __restrict__ pos,
 #pragma unroll
             for (int c = 0; c < nbs::kPmeOrder; ++c) {
                 const int gz = (bz + c) % nz;
-                const long long v = to_fixed(qxy * tz[c]);
+                const long long v = Fixed<Real>::to(qxy * tz[c]);
                 atomicAdd(line + gz, static_cast<unsigned long long>(v));
             }
         }
@@ -90,7 +105,7 @@ __global__ void fixed_to_real_kernel(const unsigned long long* __restrict__ acc,
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (i >= n) return;
     grid[i] = static_cast<Real>(static_cast<double>(
-        static_cast<long long>(acc[i])) * kFixedInv);
+        static_cast<long long>(acc[i])) * Fixed<Real>::kInv);
 }
 
 template <typename Real>

@@ -5,7 +5,16 @@ share the physics of ``_make_pair_block``: LJ (sigma/2 + sigma/2,
 2 sqrt(eps) * 2 sqrt(eps)), Coulomb by reaction field or Ewald erfc (the
 Abramowitz-Stegun 7.1.26 polynomial, max abs error ~1.5e-7, as the
 reference's GPU kernels), the quintic switch, and lambda per pair from the
-subsets of the two atoms.
+subsets of the two atoms.  Under LJPME (``cfg.ljpme``, Ewald mode only) a
+pair within the cutoff also gets the real-space dispersion term of
+C6_ij = c6_i c6_j, c6 = 8 (sigma/2)^3 2 sqrt(eps) per atom, with
+x = (alpha_d r)^2,
+
+    E += C6_ij / r^6 (1 - e^-x (1 + x + x^2/2)),
+
+its derivative in the force, and the energy shifted by minus the LJ and
+dispersion terms at the cutoff (``pallas_direct.py:180-205``); under the
+switch the shifted total is what is switched.
 
 * ``pair_column`` (``csrc/pair_column.cu``) ports
   ``make_pallas_column_kernel``: positions in the image of the cell
@@ -16,7 +25,9 @@ subsets of the two atoms.
   positions with minimum image per pair, a real-slot mask (atom index <
   ``n_real``), and the Ewald exclusion corrections of every excluded pair
   in the 27-cell neighbourhood fused in (unwrapped deltas unless
-  ``cfg.exceptions_periodic``).
+  ``cfg.exceptions_periodic``); under LJPME also the back-out of an
+  excluded pair's reciprocal dispersion term (``pallas_direct.py:262-286``),
+  gated as the Coulomb correction is, by erf(alpha r) > 1e-6.
 
 Slot layout (n_cells = ncx*ncy*ncz cells in x-major order, C slots each):
 
@@ -75,9 +86,11 @@ MAX_SUBSETS = 8
 MAX_EXCLUSIONS = 16
 MAX_CAPACITY = 1024
 
-# launches of the CUDA kernels by variant (force-only, energies)
-LAUNCHES = {"pair_column": 0, "pair_column_energies": 0,
-            "pair_cell": 0, "pair_cell_energies": 0}
+# launches of the CUDA kernels by variant:
+# pair_{column,cell}[_ljpme][_energies]
+LAUNCHES = {f"pair_{kind}{ljpme}{energies}": 0
+            for kind in ("column", "cell") for ljpme in ("", "_ljpme")
+            for energies in ("", "_energies")}
 
 
 @dataclass(frozen=True)
@@ -94,10 +107,43 @@ class PairConfig:
     use_switch: bool = False
     switch_distance: float = 0.0
     exceptions_periodic: bool = False
+    ljpme: bool = False
+    dispersion_alpha: float = 0.0
+
+    def __post_init__(self):
+        if self.ljpme and self.mode != MODE_EWALD:
+            raise ValueError("PairConfig: LJPME needs the Ewald mode")
 
     @property
     def n_cells(self):
         return self.counts[0] * self.counts[1] * self.counts[2]
+
+
+def dispersion_cutoff_terms(cfg):
+    """(1/rc^6, the dispersion factor at the cutoff over rc^6), in float64:
+    the constants of the LJPME energy shift, eps (1 - s6/rc^6) s6/rc^6 -
+    C6_ij * the second, s6 = sigma_ij^6 (pallas_direct.py:195-203).  The
+    kernels take both rounded once to float, as the twin does."""
+    inv_cut6 = cfg.cutoff ** -6
+    x = (cfg.dispersion_alpha * cfg.cutoff) ** 2
+    return inv_cut6, inv_cut6 * (1.0 - math.exp(-x) * (1.0 + x + 0.5 * x * x))
+
+
+def dispersion_terms(c6ij, r, rinv, alpha):
+    """(C6_ij/r^6 (1 - e^-x (1 + x + x^2/2)), 6 C6_ij/r^8 (1 - e^-x (1 + x
+    + x^2/2 + x^3/6))), x = (alpha r)^2: the real-space dispersion energy
+    and its -dE/dr / r (pallas_direct.py:181-194), in the kernels' order."""
+    dar = alpha * r
+    dar2 = dar * dar
+    dar4 = dar2 * dar2
+    dar6 = dar4 * dar2
+    rinv2 = rinv * rinv
+    rinv6 = rinv2 * rinv2 * rinv2
+    expd = torch.exp(-dar2)
+    e = c6ij * rinv6 * (1.0 - expd * (1.0 + dar2 + 0.5 * dar4))
+    dedr = 6.0 * c6ij * rinv6 * rinv2 * (
+        1.0 - expd * (1.0 + dar2 + 0.5 * dar4 + dar6 / 6.0))
+    return e, dedr
 
 
 def _erfc_gauss_hastings(x):
@@ -164,6 +210,9 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
     # once to float, so pairs at the cutoff fall on the same side
     cutoff2 = cfg.cutoff * cfg.cutoff
     fuse_corrections = cell_kernel and cfg.mode == MODE_EWALD
+    if cfg.ljpme:
+        c6i = (8.0 * slot_par[:, 1] ** 3 * slot_par[:, 2])[:, :, None]
+        inv_cut6, disp_cut = dispersion_cutoff_terms(cfg)
     for d in _neighbor_offsets():
         # cell c receives cell (c + d) mod nc, whose true image sits at
         # floor((c + d) / nc) box vectors
@@ -222,6 +271,16 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
             e_coul = qq * rinv * erfc_ar
             dedr_coul = qq * rinv * rinv * rinv * (
                 erfc_ar + (2.0 / SQRT_PI) * ar * gauss)
+            if cfg.ljpme:
+                c6ij = c6i * (8.0 * cpar[:, 1] ** 3 * cpar[:, 2])[:, None, :]
+                e_disp, dedr_disp = dispersion_terms(c6ij, r, rinv,
+                                                     cfg.dispersion_alpha)
+                dedr_vdw = dedr_vdw + dedr_disp
+                sigc2 = sig * sig
+                sigc6 = sigc2 * sigc2 * sigc2
+                e_vdw = e_vdw + e_disp + (
+                    eps * (1.0 - sigc6 * inv_cut6) * sigc6 * inv_cut6
+                    - c6ij * disp_cut)
         else:
             e_coul = qq * (rinv + cfg.krf * r2s - cfg.crf)
             dedr_coul = qq * (rinv - 2.0 * cfg.krf * r2s) * rinv * rinv
@@ -230,10 +289,12 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
             e_vdw = e_vdw * sw_val
         sj = csub[:, None, :]
         lam_cp = lam_c_nn[si, sj]
-        factor = torch.where(mask, lam_v_nn[si, sj] * dedr_vdw
-                             + lam_cp * dedr_coul, zero)
+        lam_vp = lam_v_nn[si, sj]
+        factor = torch.where(mask, lam_vp * dedr_vdw + lam_cp * dedr_coul,
+                             zero)
         fx, fy, fz = factor * dx, factor * dy, factor * dz
         e_coul = torch.where(mask, e_coul, zero)
+        e_vdw = torch.where(mask, e_vdw, zero)
         if fuse_corrections:
             # Ewald exclusion corrections (pallas_direct.py:229-289)
             if cfg.exceptions_periodic:
@@ -250,6 +311,14 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
             dedr_x = torch.where(big, qq * rinvx * rinvx * rinvx * (
                 erf_x - (2.0 / SQRT_PI) * arx * gauss_x), zero)
             factor_x = torch.where(xmask, -lam_cp * dedr_x, zero)
+            if cfg.ljpme:
+                # the back-out of the reciprocal dispersion term, gated by
+                # the Coulomb erf (pallas_direct.py:262-286)
+                e_vx, dedr_vx = dispersion_terms(c6ij, r2x * rinvx, rinvx,
+                                                 cfg.dispersion_alpha)
+                factor_x = factor_x + torch.where(xmask & big,
+                                                  lam_vp * dedr_vx, zero)
+                e_vdw = e_vdw + torch.where(xmask & big, e_vx, zero)
             fx = fx + factor_x * ux
             fy = fy + factor_x * uy
             fz = fz + factor_x * uz
@@ -260,8 +329,7 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
                                       dim=1)
         if energies:
             oh_j = torch.nn.functional.one_hot(csub, nsub).to(dtype)
-            for term, e in enumerate((e_coul,
-                                      torch.where(mask, e_vdw, zero))):
+            for term, e in enumerate((e_coul, e_vdw)):
                 moments[:, term] += oh_i.transpose(1, 2) @ (0.5 * e) @ oh_j
     return forces, moments
 
@@ -321,7 +389,8 @@ def pair_launch_shape(cfg, cell_kernel, energies):
 
 def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
             lam_c_nn, lam_v_nn, box, cfg, energies, n_real, cell_kernel):
-    """Check the slot tensors, allocate the outputs and launch ``entry``."""
+    """Check the slot tensors, allocate the outputs, launch ``entry`` and
+    count the launch under its variant's name."""
     dev = slot_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
@@ -349,10 +418,14 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
         forces.data_ptr(), None if moments is None else moments.data_ptr(),
         ncx, ncy, ncz, C, nsub, cfg.emax, cfg.mode, int(cfg.use_switch),
         int(n_real), *([int(cfg.exceptions_periodic)] if cell_kernel else []),
-        cfg.cutoff, cfg.cutoff * cfg.cutoff, cfg.switch_distance, cfg.krf,
-        cfg.crf, cfg.ewald_alpha,
+        int(cfg.ljpme), cfg.cutoff, cfg.cutoff * cfg.cutoff,
+        cfg.switch_distance, cfg.krf, cfg.crf, cfg.ewald_alpha,
+        cfg.dispersion_alpha, *dispersion_cutoff_terms(cfg),
         math.sqrt(ONE_4PI_EPS0), int(bool(energies)),
         torch.cuda.current_stream(dev).cuda_stream)
+    name = "pair_cell" if cell_kernel else "pair_column"
+    LAUNCHES[name + ("_ljpme" if cfg.ljpme else "")
+             + ("_energies" if energies else "")] += 1
     return forces, moments
 
 
@@ -366,11 +439,9 @@ def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
         return pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                  slot_excl, lam_c_nn, lam_v_nn, box, cfg,
                                  energies, n_real)
-    out = _launch("nbs_pair_column", slot_pos, slot_par, slot_sub, slot_ids,
-                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
-                  False)
-    LAUNCHES["pair_column_energies" if energies else "pair_column"] += 1
-    return out
+    return _launch("nbs_pair_column", slot_pos, slot_par, slot_sub, slot_ids,
+                   slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                   False)
 
 
 def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
@@ -384,8 +455,6 @@ def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
         return pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                slot_excl, lam_c_nn, lam_v_nn, box, cfg,
                                energies, n_real)
-    out = _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
-                  slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
-                  True)
-    LAUNCHES["pair_cell_energies" if energies else "pair_cell"] += 1
-    return out
+    return _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
+                   slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                   True)

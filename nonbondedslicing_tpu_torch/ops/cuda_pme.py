@@ -38,6 +38,14 @@ pad slots), ``slot_sub`` (g, C) int32; g counts cells (cell-major) or bricks
 launch the kernels for CUDA tensors and run the plain twins only for CPU
 tensors.
 
+LJPME runs the same kernels a second time on its dispersion grid
+(``pme_reciprocal(..., dispersion=True)``, the JAX package's
+``pme_reciprocal_pallas(dispersion=True)``): per-slot C6 in place of the
+charge, the vdW lambdas in place of the Coulomb ones and the dispersion
+convolution kernel (``pme.dispersion_eterm_np``).  The kernels take any
+per-slot weight; ``dispersion`` only counts their launches under names of
+their own (``pme_spread_dispersion``, ...).
+
 Evaluations with energies spread the charges a second time, in double
 (``pme_spread(..., double=True)``: splines and weights in float64, a float64
 grid), and take the slice energies from its float64 spectra under both
@@ -61,10 +69,18 @@ PME_ORDER = 5
 # memory: a block's 227 KB less its 20 KB of staged atoms
 MAX_WINDOW_BYTES = 232448 - 20480
 
-# launches of the CUDA kernels
-LAUNCHES = {"pme_spread": 0, "pme_spread_energies": 0, "pme_interp": 0,
-            "pme_spread_windows": 0, "pme_fold": 0, "pme_extract": 0,
-            "pme_interp_windows": 0}
+# launches of the CUDA kernels; "_dispersion" after the kernel's name: the
+# LJPME pass
+LAUNCHES = {name + kind: 0
+            for name in ("pme_spread", "pme_interp", "pme_spread_windows",
+                         "pme_fold", "pme_extract", "pme_interp_windows")
+            for kind in ("", "_dispersion")}
+LAUNCHES.update(pme_spread_energies=0, pme_spread_dispersion_energies=0)
+
+
+def _count(name, dispersion, double=False):
+    LAUNCHES[name + ("_dispersion" if dispersion else "")
+             + ("_energies" if double else "")] += 1
 
 
 def _splines(slot_pos, recip, grid_shape, derivatives):
@@ -267,11 +283,12 @@ def _check_slots(slot_pos, slot_q, slot_sub, dev):
 
 
 def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
-               double=False):
+               double=False, dispersion=False):
     """Charge grids (nsub, nx, ny, nz): float32, or with ``double`` float64
     from a float64 ``recip``, splines and weights in double.  CPU tensors
     take the plain twin; CUDA tensors launch the kernel (deterministic
-    fixed-point adds)."""
+    fixed-point adds).  ``dispersion`` counts the launch as the LJPME
+    pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_spread_plain(slot_pos, slot_q, slot_sub, recip,
@@ -288,13 +305,14 @@ def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
                  slot_sub.data_ptr(), recip.data_ptr(), acc.data_ptr(),
                  grid.data_ptr(), g, C, nsub, nx, ny, nz, int(bool(double)),
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_spread_energies" if double else "pme_spread"] += 1
+    _count("pme_spread", dispersion, double)
     return grid
 
 
-def pme_interp(phi, slot_pos, slot_q, slot_sub, recip):
+def pme_interp(phi, slot_pos, slot_q, slot_sub, recip, dispersion=False):
     """Slot forces (n_cells, 3, C).  CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel.  ``dispersion`` counts the launch as the
+    LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip)
@@ -311,7 +329,7 @@ def pme_interp(phi, slot_pos, slot_q, slot_sub, recip):
                  slot_q.data_ptr(), slot_sub.data_ptr(), recip.data_ptr(),
                  forces.data_ptr(), g, C, nx, ny, nz,
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_interp"] += 1
+    _count("pme_interp", dispersion)
     return forces
 
 
@@ -321,10 +339,11 @@ def _check_windows(name, W, dev):
 
 
 def pme_spread_windows(slot_pos, slot_q, slot_sub, recip, grid_shape, bricks,
-                       nsub):
+                       nsub, dispersion=False):
     """Charge windows (bx, by, bz, nsub, wx, wy, wz) of brick-major slots.
     CPU tensors take the plain twin; CUDA tensors launch the kernel (one
-    block per brick, no atomics: bitwise repeatable)."""
+    block per brick, no atomics: bitwise repeatable).  ``dispersion`` counts
+    the launch as the LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_spread_windows_plain(slot_pos, slot_q, slot_sub, recip,
@@ -349,16 +368,16 @@ def pme_spread_windows(slot_pos, slot_q, slot_sub, recip, grid_shape, bricks,
                  slot_q.data_ptr(), slot_sub.data_ptr(), recip.data_ptr(),
                  W.data_ptr(), C, nsub, *bricks, px, py, pz,
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_spread_windows"] += 1
+    _count("pme_spread_windows", dispersion)
     return W
 
 
-def pme_fold(W):
+def pme_fold(W, dispersion=False):
     """+1-shifted charge grids (nsub, nx, ny, nz) from windows
     (bx, by, bz, nsub, wx, wy, wz); the true grids are ``roll(., -1)`` on
     each axis.  Raises ValueError unless w <= 2p.  CPU tensors take the plain
     twin; CUDA tensors launch the kernel, whose sums equal the twin's to the
-    bit."""
+    bit.  ``dispersion`` counts the launch as the LJPME pass's."""
     dev = W.device
     if dev.type == "cpu":
         return pme_fold_plain(W)
@@ -368,14 +387,15 @@ def pme_fold(W):
     grid = torch.empty((nsub,) + grid_shape, dtype=torch.float32, device=dev)
     LIBRARY.call("nbs_pme_fold", W.data_ptr(), grid.data_ptr(), nsub,
                  *bricks, *p, torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_fold"] += 1
+    _count("pme_fold", dispersion)
     return grid
 
 
-def pme_extract(grid, bricks):
+def pme_extract(grid, bricks, dispersion=False):
     """Windows (bx, by, bz, nsub, wx, wy, wz) of the +1-shifted grids
     (nsub, nx, ny, nz), the inverse layout of :func:`pme_fold`.  CPU tensors
-    take the plain twin; CUDA tensors launch the kernel (a pure copy)."""
+    take the plain twin; CUDA tensors launch the kernel (a pure copy).
+    ``dispersion`` counts the launch as the LJPME pass's."""
     dev = grid.device
     if dev.type == "cpu":
         return pme_extract_plain(grid, bricks)
@@ -392,14 +412,16 @@ def pme_extract(grid, bricks):
     LIBRARY.call("nbs_pme_extract", grid.data_ptr(), W.data_ptr(), nsub,
                  *bricks, px, py, pz,
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_extract"] += 1
+    _count("pme_extract", dispersion)
     return W
 
 
-def pme_interp_windows(W_phi, slot_pos, slot_q, slot_sub, recip):
+def pme_interp_windows(W_phi, slot_pos, slot_q, slot_sub, recip,
+                       dispersion=False):
     """Forces (g_bricks, 3, C_brick) of brick-major slots from the combined
     potential windows ``W_phi`` (bx, by, bz, nsub, wx, wy, wz).  CPU tensors
-    take the plain twin; CUDA tensors launch the kernel."""
+    take the plain twin; CUDA tensors launch the kernel.  ``dispersion``
+    counts the launch as the LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_interp_windows_plain(W_phi, slot_pos, slot_q, slot_sub,
@@ -417,7 +439,7 @@ def pme_interp_windows(W_phi, slot_pos, slot_q, slot_sub, recip):
                  slot_pos.data_ptr(), slot_q.data_ptr(), slot_sub.data_ptr(),
                  recip.data_ptr(), forces.data_ptr(), C, nsub, *bricks, *p,
                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["pme_interp_windows"] += 1
+    _count("pme_interp_windows", dispersion)
     return forces
 
 
@@ -426,12 +448,16 @@ PIPELINES = ("stencil", "grid")
 
 def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                    eterm, slice_subset_pairs, energies=True,
-                   pipeline="stencil", bricks=None):
+                   pipeline="stencil", bricks=None, dispersion=False):
     """Sliced PME for slot-ordered atoms.
 
     ``eterm`` is the z-half convolution kernel (nx, ny, nz//2+1) in the
     working dtype (``pme.coulomb_eterm_np``); ``lam_nn`` (nsub, nsub) the
-    Coulomb lambda of each subset pair.  ``pipeline`` is ``"stencil"`` (any
+    Coulomb lambda of each subset pair.  ``dispersion=True`` is LJPME's
+    pass: ``slot_q`` holds per-slot C6, ``eterm`` is
+    ``pme.dispersion_eterm_np``'s, ``lam_nn`` the vdW lambdas and
+    ``grid_shape`` the dispersion grid; the kernels count their launches
+    under their dispersion names.  ``pipeline`` is ``"stencil"`` (any
     slot grouping) or ``"grid"``, the window pipeline, which takes
     brick-major slot tensors and their ``bricks`` (see the module
     docstring) and raises ValueError unless every brick has at least 6 grid
@@ -450,15 +476,18 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                              "brick-major slot tensors")
         # the +1-shifted frame from here to the interpolation
         grid = pme_fold(pme_spread_windows(slot_pos, slot_q, slot_sub, recip,
-                                           grid_shape, bricks, nsub))
+                                           grid_shape, bricks, nsub,
+                                           dispersion), dispersion)
     else:
-        grid = pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub)
+        grid = pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
+                          dispersion=dispersion)
     spec = torch.fft.rfftn(grid, dim=(1, 2, 3))
     n_slices = np.asarray(slice_subset_pairs).shape[0]
     if energies:
         grid64 = pme_spread(slot_pos, slot_q, slot_sub,
                             recip_box_vectors(box.to(torch.float64)),
-                            grid_shape, nsub, double=True)
+                            grid_shape, nsub, double=True,
+                            dispersion=dispersion)
         spec64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
         w = torch.as_tensor(rfft_energy_weights(grid_shape[2]),
                             dtype=torch.float64, device=dev)
@@ -475,8 +504,10 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
     phi = torch.fft.irfftn(comb, s=tuple(grid_shape), dim=(1, 2, 3),
                            norm="forward").contiguous()
     if pipeline == "grid":
-        forces = pme_interp_windows(pme_extract(phi, bricks), slot_pos,
-                                    slot_q, slot_sub, recip)
+        forces = pme_interp_windows(pme_extract(phi, bricks, dispersion),
+                                    slot_pos, slot_q, slot_sub, recip,
+                                    dispersion)
     else:
-        forces = pme_interp(phi, slot_pos, slot_q, slot_sub, recip)
+        forces = pme_interp(phi, slot_pos, slot_q, slot_sub, recip,
+                            dispersion)
     return slice_e, forces

@@ -11,9 +11,15 @@ the pair kernel (``ops/cuda_direct.py``), sliced PME through the spread and
 interpolation kernels of the chosen pipeline (``ops/cuda_pme.py``: whole
 grids, or brick windows with ``pme_pipeline="grid"``), self/plasma
 energies, the water-triangle exclusion corrections, 1-4 exceptions, the
-dispersion correction and one slot->atom force unsort.  It also returns ``aux``: the
-cell-capacity overflow count and the squared max displacement since
-``prepare``.
+dispersion correction and one slot->atom force unsort.  Under LJPME the pair
+kernel adds the real-space dispersion terms, the reciprocal part runs a
+second time on the dispersion grid with per-slot C6 and the vdW lambdas,
+the exclusion corrections back out the excluded pairs' dispersion terms,
+and the diagonal slices get the dispersion self energy (the JAX package's
+``ops/fused.py:439-484``); there is no volume dispersion correction.  It
+also returns ``aux``: the cell-capacity overflow count, the squared max
+displacement since ``prepare`` and, on the cell kernel's path, the span of
+the excluded pairs.
 
 The pair kernel is chosen as the JAX package's fused engine chooses it
 (its ``ops/fused.py:189-241``).  Under PME, when the exclusions are not
@@ -26,11 +32,14 @@ neighbour cell, and the water-triangle corrections run as rows.
 Validity conditions (enforced by callers via aux + static checks):
 * aux["overflow"] == 0
 * aux["maxdisp2"] <= (skin/2)^2, skin = min cell width - cutoff, capped at
-  two PME grid spacings
-* runtime box == plan.box0: the cell grid and the PME convolution kernel
+  two grid spacings of the PME grid and (LJPME) of the dispersion grid
+* aux["excl_span"] < 1 on the cell kernel's path: every excluded pair lies
+  within one cell width per axis (minimum image), so that the kernel, which
+  corrects the excluded pairs of the 27-cell neighbourhood, meets it
+* runtime box == plan.box0: the cell grid and the PME convolution kernels
   are built once from it
 
-Supported: CutoffPeriodic and PME.  Ewald and LJPME raise
+Supported: CutoffPeriodic, PME and LJPME.  Ewald raises
 NotImplementedError.
 """
 
@@ -41,7 +50,7 @@ from ..models.force import NonbondedForce
 from ..utils.constants import COUL, EPSILON0, ONE_4PI_EPS0, SQRT_PI, VDW
 from ..utils.indexing import slice_subsets
 from . import bonded, cuda_direct, cuda_pme, neighbors, params, pme, pme_bricks
-from .geometry import box_volume, recip_box_vectors
+from .geometry import box_volume, min_image, recip_box_vectors
 
 
 def _brick_counts(counts, capacity=None, raw_grid=None):
@@ -93,6 +102,13 @@ def fused_config(plan, cell_capacity=None, target_skin=0.0):
         box_diag = np.diag(np.asarray(plan.box0, dtype=np.float64))
         spacing = float(np.min(box_diag / np.asarray(grid)))
         out["skin"] = min(out["skin"], 2.0 * spacing)  # +-1 point drift margin
+        if plan.method == NonbondedForce.LJPME:
+            dgrid = pme_bricks.aligned_grid(plan.dispersion_grid, bricks)
+            out["dispersion_grid"] = dgrid
+            out["dpme_moduli"] = pme.bspline_moduli(dgrid,
+                                                    order=plan.pme_order)
+            dspacing = float(np.min(box_diag / np.asarray(dgrid)))
+            out["skin"] = min(out["skin"], 2.0 * dspacing)
     return out
 
 
@@ -117,21 +133,21 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     whole grids; ``"grid"`` is the brick-window pipeline (spread windows,
     fold, transforms, extract, interpolate from windows) on slots regrouped
     brick-major with ``config["bricks"]``.  It needs a PME plan and at
-    least 6 PME grid points per brick and axis, and raises ValueError
-    otherwise.  It is kept for parity with the JAX package's
-    ``NBS_PME_PIPELINE=grid``; ``"stencil"`` is the recommended setting.
+    least 6 grid points per brick and axis of the PME grid and (LJPME) of
+    the dispersion grid, and raises ValueError otherwise, where the JAX
+    package would fall back to its "blocked" pipeline.  It is kept for
+    parity with the JAX package's ``NBS_PME_PIPELINE=grid``; ``"stencil"``
+    is the recommended setting.
     """
     method = plan.method
     if method == NonbondedForce.Ewald:
         raise NotImplementedError(
             "fused engine: bare Ewald is not ported yet (ROADMAP A9)")
-    if method == NonbondedForce.LJPME:
-        raise NotImplementedError(
-            "fused engine: LJPME is not ported yet (ROADMAP A10)")
     cfg = fused_config(plan, cell_capacity, target_skin=target_skin)
     if cfg is None:
         return None
-    is_pme = method == NonbondedForce.PME
+    ljpme = method == NonbondedForce.LJPME
+    is_pme = method in (NonbondedForce.PME, NonbondedForce.LJPME)
     if pme_pipeline not in cuda_pme.PIPELINES:
         raise ValueError(f"pme_pipeline must be one of {cuda_pme.PIPELINES}, "
                          f"got {pme_pipeline!r}")
@@ -142,6 +158,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     bricks = cfg["bricks"]
     if use_windows:
         pme_bricks.check_two_piece_windows(cfg["pme_grid"], bricks)
+        if ljpme:
+            pme_bricks.check_two_piece_windows(cfg["dispersion_grid"], bricks)
     # the min-image cell kernel with fused exclusion corrections
     use_cell = is_pme and (plan.exceptions_periodic
                            or bonded.triangle_exclusions(
@@ -166,13 +184,20 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         crf=(1.0 / plan.cutoff) * (3.0 * eps_rf) / (2.0 * eps_rf + 1.0),
         ewald_alpha=plan.ewald_alpha, use_switch=bool(plan.use_switch),
         switch_distance=plan.switch_distance,
-        exceptions_periodic=bool(plan.exceptions_periodic))
+        exceptions_periodic=bool(plan.exceptions_periodic), ljpme=ljpme,
+        dispersion_alpha=plan.dispersion_alpha)
     cfg["pair"] = pair_cfg
     disp_correction = method in (NonbondedForce.CutoffPeriodic,
                                  NonbondedForce.PME)
     # pad-slot offset base: clears the box (hence every real atom and every
     # periodic image shift) by a wide margin
     pad_base = 64.0 * (1.0 + float(np.sum(np.abs(np.asarray(plan.box0)))))
+    # the cell kernel corrects the excluded pairs of the 27-cell
+    # neighbourhood only: their minimum-image span is measured against the
+    # cell widths (the JAX Context's refusal, models/context.py:366-392)
+    excl_pairs = np.asarray(plan.exclusion_pairs,
+                            dtype=np.int64).reshape(-1, 2)
+    inv_width = np.asarray(counts) / neighbors._perpendicular_widths(plan.box0)
     eterm_cache = {}
     index_cache = {}
 
@@ -184,15 +209,25 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 sl_tab=torch.as_tensor(slice_table, dtype=torch.int64,
                                        device=dev),
                 lam_src=torch.as_tensor(plan.lam_source, dtype=torch.int64,
-                                        device=dev))
+                                        device=dev),
+                excl_i=torch.as_tensor(excl_pairs[:, 0], device=dev),
+                excl_j=torch.as_tensor(excl_pairs[:, 1], device=dev),
+                inv_width=torch.as_tensor(inv_width, device=dev))
         return index_cache[dev]
 
-    def _eterm(box):
-        key = (box.device, box.dtype)
+    def _eterm(box, dispersion=False):
+        """The convolution kernel of the PME (or the dispersion) grid."""
+        key = (box.device, box.dtype, dispersion)
         if key not in eterm_cache:
-            eterm_cache[key] = torch.as_tensor(pme.coulomb_eterm_np(
-                cfg["pme_grid"], cfg["pme_moduli"], plan.box0,
-                plan.ewald_alpha), device=box.device).to(box.dtype)
+            if dispersion:
+                e = pme.dispersion_eterm_np(
+                    cfg["dispersion_grid"], cfg["dpme_moduli"], plan.box0,
+                    plan.dispersion_alpha)
+            else:
+                e = pme.coulomb_eterm_np(cfg["pme_grid"], cfg["pme_moduli"],
+                                         plan.box0, plan.ewald_alpha)
+            eterm_cache[key] = torch.as_tensor(e, device=box.device).to(
+                box.dtype)
         return eterm_cache[key]
 
     def prepare(positions, box, gvals, data):
@@ -243,14 +278,26 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
             slot_sub=slot_sub, sexcl=sexcl.to(torch.int32).contiguous(),
             padfix3=torch.cat([padfix, padfix.new_zeros(
                 (n_cells, 2, capacity))], dim=1),
-            pos0=positions, pos0w=pos0w, charge=charge,
-            overflow=overflow)
+            pos0=positions, pos0w=pos0w, charge=charge, sig_half=sig_half,
+            eps2=eps2, overflow=overflow)
+        if ljpme:
+            # C6 of every slot, the dispersion grid's weight (0 on pads)
+            state["slot_c6"] = (8.0 * slot_par[:, 1] ** 3
+                                * slot_par[:, 2]).contiguous()
         if use_windows:
-            # brick-major charge and subset for the window kernels
-            state["slot_q_b"] = pme_bricks.cells_to_bricks(
-                state["slot_q"][:, None], counts, bricks)[:, 0].contiguous()
-            state["slot_sub_b"] = pme_bricks.cells_to_bricks(
-                slot_sub[:, None], counts, bricks)[:, 0].contiguous()
+            # brick-major weights and subset for the window kernels
+            for key in ("slot_q", "slot_c6", "slot_sub"):
+                if key in state:
+                    state[key + "_b"] = pme_bricks.cells_to_bricks(
+                        state[key][:, None], counts, bricks)[:, 0].contiguous()
+        if use_cell:
+            idx = _indices(dev)
+            span = torch.zeros((), dtype=torch.float64, device=dev)
+            if excl_pairs.shape[0]:
+                dr = min_image(positions[idx["excl_i"]]
+                               - positions[idx["excl_j"]], box)
+                span = torch.max(dr.abs() * idx["inv_width"])
+            state["excl_span"] = span
         if is_pme and not use_cell:
             sl_tab = _indices(dev)["sl_tab"]
             sub3 = subsets.reshape(n // 3, 3)
@@ -266,6 +313,7 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         lam_c = lam[:, COUL]
         lam_v = lam[:, VDW]
         lam_c_nn = lam_c[idx["sl_tab"]].contiguous()
+        lam_v_nn = lam_v[idx["sl_tab"]].contiguous()
         charge = state["charge"]
 
         if use_cell:
@@ -280,9 +328,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         slot_pos = (pos_p[state["slots"]].reshape(n_cells, capacity, 3)
                     .transpose(1, 2) + state["padfix3"]).contiguous()
         pair_args = (slot_pos, state["slot_par"], state["slot_sub"],
-                     state["table"], state["sexcl"], lam_c_nn,
-                     lam_v[idx["sl_tab"]].contiguous(), box, pair_cfg,
-                     energies, n)
+                     state["table"], state["sexcl"], lam_c_nn, lam_v_nn, box,
+                     pair_cfg, energies, n)
         pair = cuda_direct.pair_cell if use_cell else cuda_direct.pair_column
         slot_f, moments = pair(*pair_args)
 
@@ -320,31 +367,54 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                                     device=dev)
                 slice_e[:, COUL] += (w * q_sub[slice_pairs[:, 0]]
                                      * q_sub[slice_pairs[:, 1]] * factor)
-            pme_args = dict(grid_shape=cfg["pme_grid"], eterm=_eterm(box),
-                            slice_subset_pairs=slice_pairs, energies=energies)
+                if ljpme:
+                    # dispersion self energy (the JAX package's
+                    # ops/fused.py:439-444)
+                    self_vdw = (plan.dispersion_alpha ** 6 * 64.0
+                                * state["sig_half"].to(torch.float64) ** 6
+                                * state["eps2"].to(torch.float64) ** 2 / 12.0)
+                    slice_e[diag_ids, VDW] += self_vdw @ onehot64
             if use_windows:
-                e_k, f_kb = cuda_pme.pme_reciprocal(
-                    pme_bricks.cells_to_bricks(slot_pos, counts,
-                                               bricks).contiguous(),
-                    state["slot_q_b"], state["slot_sub_b"], box, lam_c_nn,
-                    pipeline="grid", bricks=bricks, **pme_args)
-                f_k = pme_bricks.bricks_to_cells(
-                    f_kb.transpose(1, 2), counts, bricks).transpose(1, 2)
-            else:
-                e_k, f_k = cuda_pme.pme_reciprocal(
-                    slot_pos, state["slot_q"], state["slot_sub"], box,
-                    lam_c_nn, **pme_args)
+                slot_pos_b = pme_bricks.cells_to_bricks(
+                    slot_pos, counts, bricks).contiguous()
+
+            def reciprocal(weight, lam_nn, grid_key, dispersion):
+                """Slice energies and slot forces (cell-major) of one PME
+                pass: the charges' or (LJPME) the C6 weights'."""
+                kw = dict(grid_shape=cfg[grid_key],
+                          eterm=_eterm(box, dispersion),
+                          slice_subset_pairs=slice_pairs, energies=energies,
+                          dispersion=dispersion)
+                if not use_windows:
+                    return cuda_pme.pme_reciprocal(
+                        slot_pos, state[weight], state["slot_sub"], box,
+                        lam_nn, **kw)
+                e, f_b = cuda_pme.pme_reciprocal(
+                    slot_pos_b, state[weight + "_b"], state["slot_sub_b"],
+                    box, lam_nn, pipeline="grid", bricks=bricks, **kw)
+                return e, pme_bricks.bricks_to_cells(
+                    f_b.transpose(1, 2), counts, bricks).transpose(1, 2)
+
+            e_k, f_k = reciprocal("slot_q", lam_c_nn, "pme_grid", False)
             slot_f = slot_f + f_k
             if energies:
                 slice_e[:, COUL] += e_k
+            if ljpme:
+                e_d, f_d = reciprocal("slot_c6", lam_v_nn, "dispersion_grid",
+                                      True)
+                slot_f = slot_f + f_d
+                if energies:
+                    slice_e[:, VDW] += e_d
 
         # single slot->atom unsort: gather by the inverse permutation
         forces = slot_f.transpose(1, 2).reshape(-1, 3)[state["inv_slots"]]
 
         if is_pme and not use_cell:
             e_x, f_x = bonded.exclusion_corrections_rows(
-                positions, charge, state["pair_slices"], lam_c,
-                alpha=plan.ewald_alpha, num_slices=nslices)
+                positions, charge, state["sig_half"], state["eps2"],
+                state["pair_slices"], lam_c, lam_v, alpha=plan.ewald_alpha,
+                ljpme=ljpme, dispersion_alpha=plan.dispersion_alpha,
+                num_slices=nslices)
             forces = forces + f_x
             if energies:
                 slice_e += e_x
@@ -368,6 +438,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         disp = positions - state["pos0"]
         maxdisp2 = torch.max(torch.sum(disp * disp, dim=-1))
         aux = dict(overflow=state["overflow"], maxdisp2=maxdisp2)
+        if use_cell:
+            aux["excl_span"] = state["excl_span"]
         return slice_e, forces, aux
 
     return prepare, apply, cfg

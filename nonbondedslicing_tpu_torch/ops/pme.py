@@ -91,6 +91,40 @@ def coulomb_eterm_np(grid_shape, moduli, box, alpha, half=True):
     return eterm
 
 
+def dispersion_eterm_np(grid_shape, moduli, box, alpha, half=True):
+    """LJPME's reciprocal-space convolution kernel of the C6 grids for a
+    static (host) box (the JAX package's ``pme.dispersion_eterm_np``), over
+    the z-half spectrum when ``half``.
+    Unlike the Coulomb kernel it keeps the zero frequency: the dispersion
+    sum has no neutralizing background."""
+    box = np.asarray(box, dtype=np.float64)
+    recip = np.linalg.inv(box).T
+    nx, ny, nz = grid_shape
+
+    def freqs(n):
+        k = np.arange(n)
+        return np.where(k < (n + 1) // 2, k, k - n)
+
+    mx = freqs(nx)[:, None, None]
+    my = freqs(ny)[None, :, None]
+    mz = (np.arange(nz // 2 + 1) if half else freqs(nz))[None, None, :]
+    mhx = mx * recip[0, 0]
+    mhy = mx * recip[1, 0] + my * recip[1, 1]
+    mhz = mx * recip[2, 0] + my * recip[2, 1] + mz * recip[2, 2]
+    m2 = mhx * mhx + mhy * mhy + mhz * mhz
+    volume = box[0, 0] * box[1, 1] * box[2, 2]
+    boxfactor = -2.0 * math.pi * math.sqrt(math.pi) / (6.0 * volume)
+    bx = np.asarray(moduli[0])[:, None, None]
+    by = np.asarray(moduli[1])[None, :, None]
+    bz = np.asarray(moduli[2][:nz // 2 + 1] if half else moduli[2])[None, None, :]
+    m = np.sqrt(m2)
+    b = (math.pi / alpha) * m
+    erfc_b = np.vectorize(math.erfc)(b)
+    return ((2.0 * math.pi ** 3 * math.sqrt(math.pi) * erfc_b * m * m2
+             + np.exp(-b * b) * (alpha ** 3 - 2.0 * alpha * math.pi ** 2 * m2))
+            * boxfactor / (bx * by * bz))
+
+
 def rfft_energy_weights(nz):
     """Full-spectrum equivalence weights for the z-half-space layout: modes
     0 and (even) nz/2 are self-conjugate (weight 1), the rest represent a

@@ -355,21 +355,18 @@ def make_constrainer(pairs, dists, masses, n_particles, mask=None):
     ``pairs`` (M, C, 2) with target ``dists`` (M, C) and padded-row
     ``mask`` (M, C) or None.  SETTLE takes contiguous isoceles triangles
     that cover every particle; every other layout takes the gather solver
-    (MSHAKE_ITERATIONS sweeps).  Contiguous triangles that are not
-    isoceles raise NotImplementedError (the dense M-SHAKE triangle
-    solver)."""
+    (MSHAKE_ITERATIONS sweeps), contiguous triangles that are not isoceles
+    included: its closed-form solve of width-3 clusters is the M-SHAKE
+    iteration of the JAX package's dense triangle solver in another data
+    layout."""
     pairs = np.asarray(pairs, dtype=np.int32)
     if pairs.ndim != 3:
         pairs = pairs.reshape(-1, 3, 2)
     if mask is not None and np.all(np.asarray(mask) == 1.0):
         mask = None
     if (pairs.shape[1] == 3 and mask is None
-            and _contiguous_triangles(pairs, n_particles)):
-        if not _isoceles_triangles(pairs, dists, masses):
-            raise NotImplementedError(
-                "constraints: the dense M-SHAKE solver for contiguous "
-                "triangles that are not isoceles is not ported yet "
-                "(ROADMAP A11)")
+            and _contiguous_triangles(pairs, n_particles)
+            and _isoceles_triangles(pairs, dists, masses)):
         settle = SettleConstrainer(dists, masses)
         return settle.project_positions, settle.project_velocities
     solver = GatherConstrainer(pairs, dists, masses, mask=mask)

@@ -39,8 +39,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "nbs_pair_column": [_P] * 10 + [_I] * 9 + [_F] * 7 + [_I, _P],
-    "nbs_pair_cell": [_P] * 10 + [_I] * 10 + [_F] * 7 + [_I, _P],
+    "nbs_pair_column": [_P] * 10 + [_I] * 10 + [_F] * 10 + [_I, _P],
+    "nbs_pair_cell": [_P] * 10 + [_I] * 11 + [_F] * 10 + [_I, _P],
     "nbs_pair_launch_shape": [_I] * 5 + [_P],
     "nbs_pme_spread": [_P] * 6 + [_I] * 7 + [_P],
     "nbs_pme_interp": [_P] * 6 + [_I] * 5 + [_P],

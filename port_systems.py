@@ -8,6 +8,11 @@ such as the JAX package's, passed in as ``api``).
 * ``build_solute_system``: a flexible 12-site united-atom chain in a cavity
   of a rigid-water box, decoupled by lambda_elec / lambda_vdw, with harmonic
   bonds.
+
+Both take ``method``, the name of the nonbonded method: "PME" (the
+default) or "LJPME", which adds the dispersion Ewald sum with the same
+cutoff and error tolerance (alpha and grid from them, as OpenMM sizes
+them).
 """
 
 import os
@@ -37,16 +42,17 @@ SOLUTE_LAMBDAS = (0.5, 0.8)       # lambda_elec, lambda_vdw
 SOLUTE_SEED = 7                   # the chain's Maxwell-Boltzmann velocities
 
 
-def build_system(api):
+def build_system(api, method="PME"):
     """bench.py:56-138 (rigid) through ``api``, plus dE/dlambda requests for
-    both scaling parameters.  Returns (system, force, box length,
-    constraints (pairs, dists))."""
+    both scaling parameters, under the nonbonded ``method`` ("PME" or
+    "LJPME").  Returns (system, force, box length, constraints (pairs,
+    dists))."""
     n_mol = N_MOLECULES
     n_atoms = 3 * n_mol
     box = float(np.cbrt(n_atoms / 100.2))
     rng = np.random.default_rng(42)
     force = api.SlicedNonbondedForce(3)
-    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setNonbondedMethod(getattr(api.SlicedNonbondedForce, method))
     force.setCutoffDistance(0.9)
     force.setEwaldErrorTolerance(5e-4)
     system = api.System()
@@ -104,15 +110,16 @@ def zigzag_chain(center):
     return chain + np.asarray(center, dtype=np.float64)
 
 
-def build_solute_system(api, water_positions, box_len):
+def build_solute_system(api, water_positions, box_len, method="PME"):
     """One flexible 12-site united-atom chain (TraPPE CH2 LJ, charges
     +-0.25) at the box centre in a cavity of the rigid-water box
     ``water_positions`` (3 sites per molecule, cubic box ``box_len``): every
     water with an atom within CAVITY_NM of a chain site (minimum image) is
     removed.  Chain atoms come first (subset 0), then the kept waters
     (subset 1).  ``lambda_elec`` scales only the Coulomb part of slice
-    (0, 1), ``lambda_vdw`` only its LJ part; dE/dlambda is requested for
-    both.
+    (0, 1), ``lambda_vdw`` only its LJ part (under LJPME its dispersion
+    sum too); dE/dlambda is requested for both.  ``method`` is "PME" or
+    "LJPME".
 
     Returns (system, force, positions, masses, constraints, bonds, kept):
     ``constraints`` the water triangles (pairs, dists), ``bonds`` the (M, 4)
@@ -128,7 +135,7 @@ def build_solute_system(api, water_positions, box_len):
     positions = np.concatenate([chain, waters[keep].reshape(-1, 3)])
 
     force = api.SlicedNonbondedForce(2)
-    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setNonbondedMethod(getattr(api.SlicedNonbondedForce, method))
     force.setCutoffDistance(0.9)
     force.setEwaldErrorTolerance(5e-4)
     system = api.System()

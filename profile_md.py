@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the port's MD step goes, on one NVIDIA GPU.
 
-    python3 profile_md.py [--solute] [--pipeline grid]
+    python3 profile_md.py [--solute] [--pipeline grid] [--method LJPME]
 
 Builds the benchmark system of port_systems.py (23,289 atoms, PME, SETTLE,
 2 fs) from extras/bench_state_rigid.npz, or with ``--solute`` its solute
 system (the 12-site chain in that box, harmonic bonds, the gather
-constrainer for the waters, the min-image cell pair kernel), with the
-default PME pipeline or with ``--pipeline grid`` the brick-window one, warms
-make_md_step up with one 200-step chunk, then:
+constrainer for the waters, the min-image cell pair kernel), under PME or
+with ``--method LJPME`` under LJPME, with the default PME pipeline or with
+``--pipeline grid`` the brick-window one, warms make_md_step up with one
+200-step chunk, then:
 
 1. times five unprofiled 200-step chunks (torch.cuda.synchronize() around
    each) and prints the median and range of ms/step;
@@ -59,6 +60,8 @@ def main():
     parser.add_argument("--pipeline", choices=("stencil", "grid"),
                         default="stencil",
                         help="the PME pipeline (make_md_step's pme_pipeline)")
+    parser.add_argument("--method", choices=("PME", "LJPME"), default="PME",
+                        help="the nonbonded method of the system")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -78,7 +81,7 @@ def main():
     print(card)
     dev = torch.device("cuda", 0)
     f32 = torch.float32
-    system, force, box_len, constraints = build_system(nbt)
+    system, force, box_len, constraints = build_system(nbt, args.method)
     blob = np.load(STATE_FILE)
     pos_np = np.asarray(blob["positions"], dtype=np.float64)
     vel_np = np.asarray(blob["velocities"], dtype=np.float64)
@@ -86,7 +89,7 @@ def main():
     bonds = None
     if args.solute:
         (system, force, pos_np, masses, constraints, bonds,
-         kept) = build_solute_system(nbt, pos_np, box_len)
+         kept) = build_solute_system(nbt, pos_np, box_len, args.method)
         vel_np = solute_velocities(vel_np, kept)
     plan = plan_mod.build_plan(force, system)
     n = plan.num_particles

@@ -6,7 +6,9 @@
   ``_make_gather_constrainer``, on waters beside an unconstrained 12-site
   chain (width 3, closed-form solve) and on clustered constraints with a
   4-wide cluster (padded rows, pseudo-inverse solve): float64 to 1e-10,
-  float32 to 1e-5 (absolute, nm and nm/ps)."""
+  float32 to 1e-5 (absolute, nm and nm/ps).
+* Contiguous triangles that are not isoceles: the gather solver vs the
+  JAX package's dense M-SHAKE triangle solver, float64 to 1e-10."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,9 +124,32 @@ def test_gather_constrainer_matches_jax(case, dtype):
 
 
 def test_unported_solvers_raise():
-    _, _, _, masses, (pairs, dists), _ = water_box(nbs, n_mol=8)
-    pairs = np.asarray(pairs)
-    dists = np.asarray(dists).copy()
-    dists[:, 1] *= 1.01                 # not isoceles: M-SHAKE in JAX
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcons.make_constrainer(pairs, dists, masses, 24)
+    """Contiguous triangles that are not isoceles (a rigid three-site
+    molecule with three different legs), which the JAX package solves with
+    its dense M-SHAKE triangle solver, go to the port's gather solver,
+    whose closed-form width-3 solve is the same iteration: positions and
+    velocities equal the JAX solver's to 1e-10 in float64, and the
+    constraints hold.  (Nothing of make_constrainer raises any more.)"""
+    pos, pos_new, vel, masses, pairs, dists = _setup()
+    n = pos.shape[0]
+    dists = dists.copy()
+    dists[:, 1] *= 1.04                 # O-H2 longer than O-H1
+    dists[:, 2] *= 0.97
+    masses = masses.copy()
+    masses[2::3] = 2.014                # and the second H heavier
+    px_j, pv_j = jcons.make_constrainer(pairs, dists, masses, n,
+                                        dtype=jnp.float64)
+    px_t, pv_t = tcons.make_constrainer(pairs, dists, masses, n)
+    assert isinstance(px_t.__self__, tcons.GatherConstrainer)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)   # noqa: E731
+    x_t = px_t(t(pos), t(pos_new)).numpy()
+    x_j = np.asarray(px_j(jnp.asarray(pos), jnp.asarray(pos_new)))
+    np.testing.assert_allclose(x_t, x_j, rtol=0, atol=1e-10)
+    v_t = pv_t(t(x_t), t(vel)).numpy()
+    v_j = np.asarray(pv_j(jnp.asarray(x_j), jnp.asarray(vel)))
+    np.testing.assert_allclose(v_t, v_j, rtol=0, atol=1e-10)
+    x = x_t.reshape(-1, 3, 3)
+    d = np.asarray(dists).reshape(-1, 3)
+    for k, (a, b) in enumerate(((0, 1), (0, 2), (1, 2))):
+        err = np.abs(np.linalg.norm(x[:, a] - x[:, b], axis=-1) - d[:, k])
+        assert err.max() < 1e-8

@@ -1,8 +1,8 @@
 """Port fused engine (prepare/apply) vs the JAX package's fused engine
 (Pallas kernels in interpret mode) and its all-pairs oracle: the column
 kernel path (water triangles, reaction field) and the min-image cell kernel
-path (dimer exclusions under PME), each also through the brick-window PME
-pipeline (``pme_pipeline="grid"``) on both sides."""
+path (dimer exclusions under PME), each under PME and LJPME, and through the
+brick-window PME pipeline (``pme_pipeline="grid"``) on both sides."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,19 +56,25 @@ def _port_eval(plan_t, inputs, energies, pos_apply=None, **kw):
     return e, f, aux, cfg
 
 
+LJPME = nbs.SlicedNonbondedForce.LJPME
+
+
 @pytest.mark.parametrize("energies", [True, False])
-@pytest.mark.parametrize("case", ["water_pme", "pairs_rf", "pairs_pme"])
+@pytest.mark.parametrize("case", ["water_pme", "pairs_rf", "pairs_pme",
+                                  "water_ljpme", "pairs_ljpme"])
 def test_fused_apply_matches_jax_fused(case, energies):
-    if case == "water_pme":
-        plan_j, plan_t, positions = both_plans(water_system)
-        kw = dict(cell_capacity=32)
-    elif case == "pairs_pme":
+    kw = dict(cell_capacity=32)
+    if case.startswith("water"):
+        # water triangles: the column kernel and the exclusion rows
+        plan_j, plan_t, positions = both_plans(
+            water_system, method=LJPME if case == "water_ljpme" else None)
+    elif case.startswith("pairs_") and case != "pairs_rf":
         # dimer exclusions: the min-image cell kernel on both sides, with
         # 1-4 exceptions and parameter offsets
+        ljpme = case == "pairs_ljpme"
         plan_j, plan_t, positions = both_plans(
-            pair_system, nbs.SlicedNonbondedForce.PME, n_mol=100, box=3.0,
-            extras=True)
-        kw = dict(cell_capacity=32)
+            pair_system, LJPME if ljpme else nbs.SlicedNonbondedForce.PME,
+            n_mol=100, box=3.0, extras=True, bond=0.1 if ljpme else None)
     else:
         plan_j, plan_t, positions = both_plans(
             pair_system, nbs.SlicedNonbondedForce.CutoffPeriodic,
@@ -98,18 +104,32 @@ def test_fused_apply_matches_jax_fused(case, energies):
         assert e_t is None
 
 
+def _water_ljpme_wide_grid(api):
+    """The LJPME water system with a dispersion grid of 30 points per axis:
+    6 per brick of its (5, 5, 5) bricks, so that the window pipeline takes
+    the dispersion pass too (the default grid, 25, has 5)."""
+    from nonbondedslicing_tpu_torch.utils.ewald_params import ewald_alpha
+    system, force, positions = water_system(api, method=LJPME)
+    force.setLJPMEParameters(ewald_alpha(0.9, 5e-4), 30, 30, 30)
+    return system, force, positions
+
+
 @pytest.mark.parametrize("energies", [True, False])
-@pytest.mark.parametrize("case", ["water_pme", "pairs_pme"])
+@pytest.mark.parametrize("case", ["water_pme", "pairs_pme", "water_ljpme"])
 def test_fused_apply_grid_pipeline_matches_jax_fused(monkeypatch, case,
                                                      energies):
     """The brick-window PME pipeline through the fused engine, against the
     JAX fused engine under NBS_PME_PIPELINE=grid (its fold and extract
     kernels in interpret mode), at the 2e-4 budget of the default pipeline;
     and against the port's default pipeline, whose slice energies it shares
-    (the double whole-grid spread) and whose forces it matches to 2e-5."""
+    (the double whole-grid spread) and whose forces it matches to 2e-5.
+    Under LJPME both passes, the charges' and the C6 weights', go through
+    the windows."""
     monkeypatch.setenv("NBS_PME_PIPELINE", "grid")
     if case == "water_pme":
         plan_j, plan_t, positions = both_plans(water_system)
+    elif case == "water_ljpme":
+        plan_j, plan_t, positions = both_plans(_water_ljpme_wide_grid)
     else:
         plan_j, plan_t, positions = both_plans(
             pair_system, nbs.SlicedNonbondedForce.PME, n_mol=100, box=3.0,
@@ -119,8 +139,9 @@ def test_fused_apply_grid_pipeline_matches_jax_fused(monkeypatch, case,
     e_t, f_t, aux, cfg = _port_eval(plan_t, inputs, energies,
                                     pme_pipeline="grid", **kw)
     assert int(aux["overflow"]) == 0
-    assert all(p >= 6 for p, _ in tfused.pme_bricks.brick_window(
-        cfg["pme_grid"], cfg["bricks"]))
+    for grid_key in ("pme_grid", "dispersion_grid"):
+        assert all(p >= 6 for p, _ in tfused.pme_bricks.brick_window(
+            cfg.get(grid_key, cfg["pme_grid"]), cfg["bricks"]))
     prep, app, _ = jfused.make_fused_engine(plan_j, interpret=True,
                                             energies=energies, **kw)
     pos, box, gvals, data = _jax_inputs(plan_j, positions, jnp.float32)
@@ -230,8 +251,7 @@ def test_fused_preshift_face_crossing_during_reuse():
 
 
 def test_unported_methods_raise():
-    for method, item in ((nbs.SlicedNonbondedForce.LJPME, "A10"),
-                         (nbs.SlicedNonbondedForce.Ewald, "A9")):
-        _, plan_t, _ = both_plans(pair_system, method, n_mol=100)
-        with pytest.raises(NotImplementedError, match=item):
-            tfused.make_fused_engine(plan_t)
+    _, plan_t, _ = both_plans(pair_system, nbs.SlicedNonbondedForce.Ewald,
+                              n_mol=100)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tfused.make_fused_engine(plan_t)

@@ -31,7 +31,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _water(n_mol=512, seed=3):
+def _water(n_mol=512, seed=3, method=nbt.SlicedNonbondedForce.PME):
     """Rigid-water lattice through the port's API (3 cells per axis)."""
     rng = np.random.default_rng(seed)
     n_atoms = 3 * n_mol
@@ -39,7 +39,7 @@ def _water(n_mol=512, seed=3):
     system = nbt.System()
     system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
     force = nbt.SlicedNonbondedForce(3)
-    force.setNonbondedMethod(nbt.SlicedNonbondedForce.PME)
+    force.setNonbondedMethod(method)
     force.setCutoffDistance(0.75)
     m = int(round(n_mol ** (1 / 3)))
     sp = box / m
@@ -174,7 +174,8 @@ def _pair_kernel_against_twin(arrays, cell_kernel, dev):
         (cuda_direct.pair_column, cuda_direct.pair_column_plain,
          "pair_column"))
     for energies in (False, True):
-        key = name + "_energies" if energies else name
+        key = (name + ("_ljpme" if arrays["cfg"].ljpme else "")
+               + ("_energies" if energies else ""))
         before = cuda_direct.LAUNCHES[key]
         f_k, m_k = kernel(*args, energies, n)
         f_k2, m_k2 = kernel(*args, energies, n)
@@ -242,7 +243,7 @@ def test_pme_kernels_match_plain(cuda):
                                   st["slot_sub"], recip, grid_shape,
                                   plan.num_subsets)
     assert torch.equal(grid_k, grid_k2)
-    # the double variant of energy evaluations: exact but for the 2^-32
+    # the double variant of energy evaluations: exact but for the 2^-40
     # fixed-point steps of its adds
     recip64 = recip_box_vectors(s["box"].double())
     before = dict(cuda_pme.LAUNCHES)
@@ -274,8 +275,53 @@ def test_pme_kernels_match_plain(cuda):
                                                      + 1.0)
 
 
-def test_fused_engine_on_card_matches_cpu_f64(cuda):
-    plan, positions = _water()
+def test_pme_kernels_dispersion_pass_match_plain(cuda):
+    """LJPME's second pass through B2 (float and double) and B3: per-slot
+    C6 weights on the dispersion grid, against the twins, each launch
+    counted under its dispersion name."""
+    plan, positions = _water(method=nbt.SlicedNonbondedForce.LJPME)
+    s = _state(plan, positions, cuda)
+    st, cfg = s["st"], s["cfg"]
+    grid_shape = cfg["dispersion_grid"]
+    nsub = plan.num_subsets
+    c6 = st["slot_c6"]
+    assert float(c6.max()) > 0.01
+    recip = recip_box_vectors(s["box"])
+    before = dict(cuda_pme.LAUNCHES)
+    args = (s["slot_pos"], c6, st["slot_sub"], recip, grid_shape, nsub)
+    grid_k = cuda_pme.pme_spread(*args, dispersion=True)
+    grid_p = cuda_pme.pme_spread_plain(*args)
+    args64 = (s["slot_pos"], c6, st["slot_sub"],
+              recip_box_vectors(s["box"].double()), grid_shape, nsub)
+    grid_k64 = cuda_pme.pme_spread(*args64, double=True, dispersion=True)
+    grid_p64 = cuda_pme.pme_spread_plain(*args64, double=True)
+    eterm = torch.as_tensor(tpme.dispersion_eterm_np(
+        grid_shape, cfg["dpme_moduli"], plan.box0, plan.dispersion_alpha),
+        device=cuda).float()
+    phi = torch.fft.irfftn(torch.fft.rfftn(grid_k, dim=(1, 2, 3)) * eterm,
+                           s=tuple(grid_shape), dim=(1, 2, 3),
+                           norm="forward").contiguous()
+    f_k = cuda_pme.pme_interp(phi, s["slot_pos"], c6, st["slot_sub"], recip,
+                              dispersion=True)
+    f_p = cuda_pme.pme_interp_plain(phi, s["slot_pos"], c6, st["slot_sub"],
+                                    recip)
+    torch.cuda.synchronize()
+    assert float((grid_k - grid_p).abs().max()) <= 2e-5 * float(
+        grid_p.abs().max())
+    assert float((grid_k64 - grid_p64).abs().max()) <= 1e-7 * float(
+        grid_p64.abs().max())
+    assert float(f_p.abs().max()) > 0.0
+    assert float((f_k - f_p).abs().max()) <= 2e-5 * (float(f_p.abs().max())
+                                                     + 1.0)
+    made = {k: cuda_pme.LAUNCHES[k] - before[k] for k in before}
+    assert made == {k: int(k in ("pme_spread_dispersion",
+                                 "pme_spread_dispersion_energies",
+                                 "pme_interp_dispersion")) for k in before}
+
+
+@pytest.mark.parametrize("method", ["PME", "LJPME"])
+def test_fused_engine_on_card_matches_cpu_f64(cuda, method):
+    plan, positions = _water(method=getattr(nbt.SlicedNonbondedForce, method))
     s = _state(plan, positions, cuda)
     e_g, f_g, _ = s["app"](s["pos"], s["box"], s["gvals"], s["data"], s["st"])
     prep, app, _ = tfused.make_fused_engine(plan, energies=True)

@@ -1,6 +1,8 @@
 """Port MD step (make_md_step) vs the JAX package's on the rigid-water box
-of tests/test_md_conservation.py, on a flexible chain solvated in water,
-and its guards.
+of tests/test_md_conservation.py (under PME and LJPME), on a flexible chain
+solvated in water, with a harmonic bond across a box face, and its guards;
+and its NVE energy conservation (the twin of
+tests/test_md_conservation.py::test_nve_energy_conservation_rigid_water).
 
 The box holds 512 waters instead of 125: the fused engine needs at least 3
 cells of one cutoff per axis, and the 125-water box (1.55 nm) runs the JAX
@@ -23,10 +25,12 @@ import nonbondedslicing_tpu_torch as nbt
 from nonbondedslicing_tpu_torch.ops import cuda_direct
 from nonbondedslicing_tpu_torch.ops import engine as tengine
 from nonbondedslicing_tpu_torch.ops import plan as tplan
+from nonbondedslicing_tpu_torch.ops.fused import make_fused_engine
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
 from port_systems import KB, build_solute_system
-from tests.test_torch_plan import both_plans, jax_data_np, water_box
+from tests.test_torch_plan import both_plans, jax_data_np, pair_system, \
+    water_box
 
 torch.set_num_threads(2)
 
@@ -34,36 +38,86 @@ torch.set_num_threads(2)
 N_MOL = 512
 
 
-def _setup():
-    plan_j, plan_t, positions = both_plans(water_box, n_mol=N_MOL)
+def _setup(method=None):
+    plan_j, plan_t, positions = both_plans(water_box, n_mol=N_MOL,
+                                           method=method)
     _, _, _, masses, constraints, box = water_box(nbt, n_mol=N_MOL)
     data_np = jax_data_np(plan_j)
     return plan_j, plan_t, positions, masses, constraints, box, data_np
 
 
-def test_md_trajectory_matches_jax():
-    plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
+def _trajectory_against_jax(method=None, steps=10, bonds=None, **kw):
+    """``steps`` steps of the water box from rest through both packages'
+    make_md_step with the same arguments: positions to 1e-4 nm, the final
+    energy to 1e-3 relative (float32).  Returns the port's run, positions
+    and energy."""
+    plan_j, plan_t, positions, masses, constraints, box, data_np = _setup(
+        method)
     run_t = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float32,
-                         constraints=constraints, reuse_steps=4)
+                         constraints=constraints, reuse_steps=4, bonds=bonds,
+                         **kw)
     data_t = tengine.data_from_numpy(data_np, device="cpu",
                                      dtype=torch.float32)
     p_t, v_t, e_t = run_t(positions, np.zeros_like(positions),
-                          np.diag([box] * 3), np.array([1.0]), data_t, 10)
+                          np.diag([box] * 3), np.array([1.0]), data_t, steps)
     assert run_t.config["reuse_steps"] == 4
     assert run_t.config["counts"] == (3, 3, 3)
 
     run_j = jax_md_step(plan_j, masses, dt=0.001, dtype=jnp.float32,
-                        constraints=constraints, reuse_steps=4)
+                        constraints=constraints, reuse_steps=4, bonds=bonds,
+                        **kw)
     data_j = {k: (v.astype(np.float32) if v.dtype.kind == "f" else v)
               for k, v in data_np.items()}
     p_j, v_j, e_j = run_j(jnp.asarray(positions, jnp.float32),
                           jnp.zeros(positions.shape, jnp.float32),
                           jnp.asarray(np.diag([box] * 3), jnp.float32),
-                          jnp.asarray([1.0], jnp.float32), data_j, 10)
+                          jnp.asarray([1.0], jnp.float32), data_j, steps)
     assert p_t.dtype == torch.float32 and e_t.dtype == torch.float64
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0,
                                atol=1e-4)
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)
+    return run_t, p_t, e_t
+
+
+def test_md_trajectory_matches_jax():
+    _trajectory_against_jax()
+
+
+def test_md_ljpme_trajectory_matches_jax():
+    """The same under LJPME: the column kernel's dispersion terms, the
+    dispersion PME pass and the rows' back-out on every step."""
+    run, _, _ = _trajectory_against_jax(nbs.SlicedNonbondedForce.LJPME,
+                                        steps=6)
+    assert run.config["dispersion_grid"] == (15, 15, 15)
+
+
+def test_md_periodic_bond_matches_jax():
+    """A harmonic bond between the oxygens of two waters on either side of
+    the x face of the box, less than 0.4 nm apart by minimum image and more
+    than half the box as given: with ``bonds_periodic`` both packages take
+    the minimum image.  Without it the port takes the vector as given, as
+    the JAX package does, and the bonded atoms move otherwise."""
+    _, plan_t, positions, masses, constraints, box, data_np = _setup()
+    o = positions[::3]
+    a = int(np.argmin(o[:, 0]))
+    near = o - o[a]
+    near[:, 0] -= box
+    d = np.linalg.norm(near, axis=1)
+    b = int(np.argmin(np.where(o[:, 0] > 0.5 * box, d, np.inf)))
+    r_min = float(d[b])
+    r_raw = float(np.linalg.norm(o[b] - o[a]))
+    assert r_min < 0.4 and r_raw > 0.5 * box
+    bonds = [(3 * a, 3 * b, r_min + 0.05, 5000.0)]
+    _, p_per, _ = _trajectory_against_jax(steps=4, bonds=bonds,
+                                          bonds_periodic=True)
+    run_raw = make_md_step(plan_t, masses, dt=0.001, constraints=constraints,
+                           reuse_steps=4, bonds=bonds)
+    p_raw, _, _ = run_raw(positions, np.zeros_like(positions),
+                          np.diag([box] * 3), np.array([1.0]),
+                          tengine.data_from_numpy(data_np, device="cpu",
+                                                  dtype=torch.float32), 4)
+    moved = (p_per - p_raw).abs()[[3 * a, 3 * b]]
+    assert float(moved.max()) > 1e-3
 
 
 def test_md_grid_pipeline_matches_stencil_pipeline(monkeypatch):
@@ -138,6 +192,33 @@ def test_md_guards_raise():
         run(positions, vel0, 1.01 * box_arr, gvals, data_t, 1)
 
 
+def test_md_excluded_pair_span_guard():
+    """On the cell kernel's path, an excluded pair two cells apart raises
+    after the run (the JAX Context's refusal, models/context.py:366-392);
+    the solute box of this file spans less than a cell."""
+    _, plan_t, positions = both_plans(pair_system,
+                                      nbs.SlicedNonbondedForce.PME)
+    masses = np.tile([16.0, 1.0], plan_t.num_particles // 2)
+    data_t = tengine.plan_data(plan_t, device="cpu", dtype=torch.float32)
+    run = make_md_step(plan_t, masses, dt=0.001, reuse_steps=1)
+    assert run.config["counts"] == (4, 4, 4)       # cells of 1.2 nm
+    positions = positions.copy()
+    positions[1] = positions[0] + [2.2, 0.0, 0.0]
+    with pytest.raises(nbt.OpenMMException, match="excluded pair spans"):
+        run(positions, np.zeros_like(positions), plan_t.box0, [0.8], data_t,
+            1)
+
+    out = _solute_box(nbt)
+    plan_s = tplan.build_plan(out[1], out[0])
+    prep, app, _ = make_fused_engine(plan_s, cell_capacity=64)
+    data_s = tengine.plan_data(plan_s, device="cpu", dtype=torch.float32)
+    pos = torch.as_tensor(out[2], dtype=torch.float32)
+    box = torch.as_tensor(plan_s.box0, dtype=torch.float32)
+    gvals = torch.as_tensor(plan_s.global_defaults, dtype=torch.float32)
+    _, _, aux = app(pos, box, gvals, data_s, prep(pos, box, gvals, data_s))
+    assert 0.0 < float(aux["excl_span"]) < 1.0
+
+
 def test_md_unported_options_raise():
     plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
     with pytest.raises(NotImplementedError, match="A7"):
@@ -196,3 +277,33 @@ def test_md_solute_trajectory_matches_jax(monkeypatch):
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0,
                                atol=2e-4)
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)
+
+
+@pytest.mark.parametrize("method", ["PME", "LJPME"])
+def test_nve_energy_conservation(method):
+    """Twin of tests/test_md_conservation.py::test_nve_energy_conservation_
+    rigid_water for single precision, on this file's 512-water box (K = 2:
+    the lattice relaxes fast at first): settle it for 20 steps of 1 fs,
+    then PE + KE may drift by at most 5% of the kinetic energy scale over
+    40 more.  PE is the energy each run() returns (its last evaluation,
+    with energies, at the final positions); KE that of the leapfrog
+    half-step velocities, as in the JAX test."""
+    _, plan_t, positions, masses, constraints, box, _ = _setup(
+        getattr(nbs.SlicedNonbondedForce, method))
+    data = tengine.plan_data(plan_t, device="cpu", dtype=torch.float32)
+    run = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float32,
+                       constraints=constraints, reuse_steps=2)
+    box_arr = np.diag([box] * 3)
+
+    def total_energy(vel, pe):
+        ke = 0.5 * float(np.sum(masses[:, None]
+                                * vel.double().numpy() ** 2))
+        return float(pe) + ke, ke
+
+    pos, vel, pe = run(positions, np.zeros_like(positions), box_arr, [1.0],
+                       data, 20)
+    e0, ke0 = total_energy(vel, pe)
+    pos, vel, pe = run(pos, vel, box_arr, [1.0], data, 40)
+    e1, ke1 = total_energy(vel, pe)
+    assert ke1 > 0.0
+    assert abs(e1 - e0) < 0.05 * max(ke0, ke1, 100.0), (e0, e1, ke0, ke1)

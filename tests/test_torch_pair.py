@@ -162,7 +162,8 @@ def test_plain_pair_f64_matches_all_pairs_oracle(ewald, switching):
 
 def oracle_direct_space(arrays, positions):
     """(slice energies (S, 2), forces (N, 3)) of a hard-shape case from the
-    JAX all-pairs direct-space function (exact erfc), in float64."""
+    JAX all-pairs direct-space function (exact erfc; LJPME's dispersion
+    terms where the case has them), in float64."""
     cfg = arrays["cfg"]
     ewald = cfg.mode == cuda_direct.MODE_EWALD
     nsub = cfg.nsub
@@ -170,7 +171,9 @@ def oracle_direct_space(arrays, positions):
         mode=jdirect.EWALD_DIRECT if ewald else jdirect.CUTOFF, periodic=True,
         cutoff=cfg.cutoff, krf=cfg.krf, crf=cfg.crf,
         use_switch=cfg.use_switch, switch_distance=cfg.switch_distance,
-        ewald_alpha=cfg.ewald_alpha, num_slices=nsub * (nsub + 1) // 2)
+        ewald_alpha=cfg.ewald_alpha, ljpme=cfg.ljpme,
+        dispersion_alpha=cfg.dispersion_alpha,
+        num_slices=nsub * (nsub + 1) // 2)
     e_o, f_o = oracle(
         jnp.asarray(positions), jnp.asarray(arrays["box"]),
         jnp.asarray(arrays["charge"]), jnp.asarray(arrays["sig_half"]),

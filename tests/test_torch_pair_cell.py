@@ -214,8 +214,9 @@ def test_plain_pair_cell_f64_hard_shapes_match_all_pairs_oracle(case):
             jnp.asarray(arrays["eps2"]), jnp.asarray(arrays["subsets"]),
             arrays["slice_table"], jnp.asarray(arrays["lam_c"]),
             jnp.asarray(arrays["lam_v"]), alpha=cfg.ewald_alpha,
-            periodic_exceptions=cfg.exceptions_periodic, ljpme=False,
-            dispersion_alpha=0.0, num_slices=e_o.shape[0], num_particles=n)
+            periodic_exceptions=cfg.exceptions_periodic, ljpme=cfg.ljpme,
+            dispersion_alpha=cfg.dispersion_alpha, num_slices=e_o.shape[0],
+            num_particles=n)
         e_o = e_o + np.asarray(e_x)
         f_o = f_o + np.asarray(f_x)
     assert np.abs(f_o).max() > 1.0

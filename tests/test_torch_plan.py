@@ -24,15 +24,17 @@ torch.set_num_threads(2)
 D_OH, D_HH = 0.09572, 0.15139
 
 
-def water_system(api, n_mol=150, box=4.8, seed=7, nsub=3):
+def water_system(api, n_mol=150, box=4.8, seed=7, nsub=3, method=None):
     """Lattice of water-like triples whose exclusions are contiguous
     triangles (the fused engine's production layout); twin of
-    tests/test_fused.py::_water_system plus a dE/dlambda request."""
+    tests/test_fused.py::_water_system plus a dE/dlambda request.  PME
+    unless ``method`` names another."""
     rng = np.random.default_rng(seed)
     system = api.System()
     system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
     force = api.SlicedNonbondedForce(nsub)
-    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setNonbondedMethod(api.SlicedNonbondedForce.PME if method is None
+                             else method)
     force.setCutoffDistance(0.9)
     grid = int(np.ceil(n_mol ** (1 / 3)))
     sites = np.stack(np.meshgrid(*[np.arange(grid)] * 3,
@@ -62,10 +64,13 @@ def water_system(api, n_mol=150, box=4.8, seed=7, nsub=3):
 
 
 def pair_system(api, method, n_mol=400, box=4.8, seed=2, nsub=3,
-                switching=False, extras=False):
+                switching=False, extras=False, bond=None):
     """Random bonded pairs (one exclusion each); twin of
     tests/test_fused.py::_system.  ``extras`` adds 1-4 exceptions and
-    particle / exception parameter offsets."""
+    particle / exception parameter offsets.  A pair's atoms lie a normal
+    offset of 0.03 nm per axis apart or, with ``bond``, exactly ``bond``
+    apart (LJPME's dispersion back-out of an excluded pair cancels to
+    float32 noise at a few hundredths of a nm)."""
     rng = np.random.default_rng(seed)
     system = api.System()
     system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
@@ -83,8 +88,10 @@ def pair_system(api, method, n_mol=400, box=4.8, seed=2, nsub=3,
         force.addParticle(-0.5, 0.31, 0.6)
         force.addParticle(0.5, 0.1, 0.05)
         # keep the excluded pair bonded-range
-        positions[2 * k + 1] = positions[2 * k] + rng.normal(scale=0.03,
-                                                             size=3)
+        offset = rng.normal(scale=0.03, size=3)
+        if bond is not None:
+            offset *= bond / np.linalg.norm(offset)
+        positions[2 * k + 1] = positions[2 * k] + offset
         force.addException(2 * k, 2 * k + 1, 0.0, 1.0, 0.0)
         force.setParticleSubset(2 * k, k % nsub)
         force.setParticleSubset(2 * k + 1, (k + 1) % nsub)
@@ -101,16 +108,18 @@ def pair_system(api, method, n_mol=400, box=4.8, seed=2, nsub=3,
     return system, force, positions
 
 
-def water_box(api, n_mol=125, seed=3):
+def water_box(api, n_mol=125, seed=3, method=None):
     """Rigid 3-site water lattice with SETTLE constraints; twin of
-    tests/test_md_conservation.py::_water_box."""
+    tests/test_md_conservation.py::_water_box.  PME unless ``method`` names
+    another."""
     rng = np.random.default_rng(seed)
     n_atoms = 3 * n_mol
     box = float(np.cbrt(n_atoms / 100.2))
     system = api.System()
     system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
     force = api.SlicedNonbondedForce(2)
-    force.setNonbondedMethod(api.SlicedNonbondedForce.PME)
+    force.setNonbondedMethod(api.SlicedNonbondedForce.PME if method is None
+                             else method)
     force.setCutoffDistance(0.75)
     positions = np.zeros((n_atoms, 3))
     cons_p, cons_d = [], []

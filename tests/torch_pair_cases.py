@@ -20,46 +20,60 @@ from nonbondedslicing_tpu_torch.utils.indexing import slice_subsets
 CUTOFF = 0.75        # unless a case sets its own
 WIDTH = 0.8          # cell width of the rectangular boxes, >= the cutoff
 
-# cells, slots per cell, atoms, subsets, exclusion-list width and the size
-# of the mutually excluded groups of consecutive atoms, then what else the
-# case sets.  Defaults: Ewald, no switch, a rectangular box, unwrapped
-# exclusion corrections, uniformly random positions.
+# The seed of the case's arrays, cells, slots per cell, atoms, subsets,
+# exclusion-list width and the size of the mutually excluded groups of
+# consecutive atoms, then what else the case sets.  Defaults: Ewald, no
+# switch, a rectangular box, unwrapped exclusion corrections, uniformly
+# random positions, charges within +-0.6 and sigma/2 in 0.01-0.03 nm.
 PAIR_CASES = {
     # a capacity that is no multiple of 32: the last test step of a staged
     # tile is partly beyond it
-    "odd_capacity": dict(cells=(3, 3, 3), capacity=60, n=1050, nsub=3,
-                         emax=2, group=3),
+    "odd_capacity": dict(seed=45, cells=(3, 3, 3), capacity=60, n=1050,
+                         nsub=3, emax=2, group=3),
     # more slots than fit one staged tile: the queue and the row's sums
     # persist across tiles, and a cell is cut into ten blocks
-    "large_capacity": dict(cells=(3, 3, 3), capacity=300, n=5600, nsub=2,
-                           emax=2, group=3),
-    "eight_subsets": dict(cells=(3, 3, 3), capacity=68, n=780, nsub=8,
-                          emax=2, group=3),
+    "large_capacity": dict(seed=44, cells=(3, 3, 3), capacity=300, n=5600,
+                           nsub=2, emax=2, group=3),
+    "eight_subsets": dict(seed=41, cells=(3, 3, 3), capacity=68, n=780,
+                          nsub=8, emax=2, group=3),
     # every atom excludes 16 others: full lists
     # (0.1 nm apart, as bonded atoms are: at 0.03 nm the float32 rounding of
     # erf in 16 corrections per atom outgrows 2e-5 of the net force)
-    "full_exclusions": dict(cells=(3, 3, 3), capacity=60, n=40 * 17, nsub=3,
-                            emax=16, group=17, spacing=0.1),
-    "switch": dict(cells=(3, 3, 3), capacity=52, n=780, nsub=3, emax=2,
-                   group=3, use_switch=True),
-    "reaction_field": dict(cells=(3, 3, 3), capacity=68, n=780, nsub=3,
-                           emax=4, group=3, reaction_field=True),
+    "full_exclusions": dict(seed=42, cells=(3, 3, 3), capacity=60,
+                            n=40 * 17, nsub=3, emax=16, group=17,
+                            spacing=0.1),
+    "switch": dict(seed=47, cells=(3, 3, 3), capacity=52, n=780, nsub=3,
+                   emax=2, group=3, use_switch=True),
+    "reaction_field": dict(seed=46, cells=(3, 3, 3), capacity=68, n=780,
+                           nsub=3, emax=4, group=3, reaction_field=True),
     # a cutoff so close to the cell width (0.8 nm, a third of the box) that
     # the cell kernel's blocks whose atoms span their whole cell cannot
     # take one frame of images for the block, and others can
-    "tight_cutoff": dict(cells=(3, 3, 3), capacity=68, n=780, nsub=3, emax=2,
-                         group=3, cutoff=0.795),
-    "triclinic": dict(cells=(3, 3, 3), capacity=72, n=1200, nsub=3, emax=2,
-                      group=3, triclinic=True, exceptions_periodic=True),
-    "grid_3x4x5": dict(cells=(3, 4, 5), capacity=70, n=2200, nsub=3, emax=2,
-                       group=3, exceptions_periodic=True),
+    "tight_cutoff": dict(seed=48, cells=(3, 3, 3), capacity=68, n=780,
+                         nsub=3, emax=2, group=3, cutoff=0.795),
+    "triclinic": dict(seed=49, cells=(3, 3, 3), capacity=72, n=1200, nsub=3,
+                      emax=2, group=3, triclinic=True,
+                      exceptions_periodic=True),
+    "grid_3x4x5": dict(seed=43, cells=(3, 4, 5), capacity=70, n=2200,
+                       nsub=3, emax=2, group=3, exceptions_periodic=True),
     # 240 atoms within 0.3 nm of a corner shared by 8 cells, so that every
     # real candidate of a row there is a hit and the queue fills on every
     # test step; the other 19 cells are empty or all pads; an excluded
     # dimer far from everything (rows whose only hits are excluded
     # partners) and a lone atom (a row with no hit)
-    "dense_and_empty": dict(cells=(3, 3, 3), capacity=48, n=243, nsub=3,
-                            emax=2, group=1, layout="corner"),
+    "dense_and_empty": dict(seed=40, cells=(3, 3, 3), capacity=48, n=243,
+                            nsub=3, emax=2, group=1, layout="corner"),
+    # LJPME, with and without the switch: weak charges and wide atoms
+    # (sigma/2 0.08-0.11 nm) on a sparser lattice, so that the dispersion
+    # terms weigh in the forces; excluded partners 0.1 nm apart, as bonded
+    # atoms are (closer, the back-out cancels to float32 noise)
+    "ljpme": dict(seed=50, cells=(3, 3, 3), capacity=48, n=390, nsub=3,
+                  emax=2, group=3, spacing=0.1, ljpme=True, charge=0.15,
+                  sig_half=(0.08, 0.11)),
+    "ljpme_switch": dict(seed=51, cells=(3, 3, 3), capacity=48, n=390,
+                         nsub=3, emax=2, group=3, spacing=0.1, ljpme=True,
+                         charge=0.15, sig_half=(0.08, 0.11),
+                         use_switch=True),
 }
 
 
@@ -127,7 +141,7 @@ def pair_case_arrays(name):
     """The raw arrays of case ``name`` (numpy, float64): what an all-pairs
     oracle takes."""
     case = PAIR_CASES[name]
-    rng = np.random.default_rng(sorted(PAIR_CASES).index(name) + 40)
+    rng = np.random.default_rng(case["seed"])
     n, nsub = case["n"], case["nsub"]
     box = _box(case)
     wrapped = _positions(case, box, rng)
@@ -146,7 +160,9 @@ def pair_case_arrays(name):
     eps_rf = 78.3
     return dict(
         box=box, wrapped=wrapped, raw=wrapped + images @ box,
-        charge=rng.uniform(-0.6, 0.6, n), sig_half=rng.uniform(0.01, 0.03, n),
+        charge=rng.uniform(-case.get("charge", 0.6), case.get("charge", 0.6),
+                           n),
+        sig_half=rng.uniform(*case.get("sig_half", (0.01, 0.03)), n),
         eps2=rng.uniform(0.5, 1.5, n),
         subsets=rng.integers(0, nsub, n).astype(np.int32),
         exclusion_list=excl, exclusion_pairs=pairs, slice_table=table,
@@ -163,7 +179,10 @@ def pair_case_arrays(name):
             ewald_alpha=0.0 if reaction_field else ewald_alpha(cutoff, 5e-4),
             use_switch=bool(case.get("use_switch")),
             switch_distance=0.6 if case.get("use_switch") else 0.0,
-            exceptions_periodic=bool(case.get("exceptions_periodic"))))
+            exceptions_periodic=bool(case.get("exceptions_periodic")),
+            ljpme=bool(case.get("ljpme")),
+            dispersion_alpha=(ewald_alpha(cutoff, 5e-4) if case.get("ljpme")
+                              else 0.0)))
 
 
 def pair_case_slots(arrays, cell_kernel, device, dtype):

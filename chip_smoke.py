@@ -71,6 +71,23 @@ the last line:
    evaluations with energies and force-only against CPU f64 (dE/dlambda_vdw
    and dE/dlambda_elec included), counted; no MD chunks.
 
+The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
+their shared design in csrc/spread_common.cuh) are owner-computes: a block
+owns a region of points (a slot group's grid points, or a brick's window),
+gathers the atoms that reach it, sums them in shared memory in 64-bit fixed
+point and stores each point once, in one launch without global atomics.
+Each spread entry counts the kernels one call puts on the card
+(launches_per_call, from a profiler trace of ten calls of each kernel and
+variant at its first entry) and gives the
+whole-grid spread's neighbour radius per axis (radius).  When
+build/parent_csrc/ (or $NBS_PARENT_CSRC) holds an earlier version's
+pme_spread.cu and pme_spread_windows.cu, with the C entry points of the
+design that summed with global atomics into a zeroed int64 accumulator
+(``git show <rev>:nonbondedslicing_tpu_torch/csrc/<file>``), they are built
+beside the kernels and every spread entry also gets that design's time
+from this run, in turns parent, kernel, kernel, parent (parent_ms), its
+launches per call, and whether its grids equal the kernel's to the bit.
+
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
 "solute", "rigid_ljpme" or "solute_ljpme"): launches in that path's run
@@ -101,6 +118,10 @@ from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
+# an earlier version's spread kernels to time beside the current ones
+PARENT_DIR = os.environ.get("NBS_PARENT_CSRC",
+                            os.path.join(ROOT, "build", "parent_csrc"))
+PARENT_SOURCES = ("pme_spread.cu", "pme_spread_windows.cu")
 
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
@@ -327,6 +348,142 @@ def bound(ops, nbytes, peak_flops=PEAK_FP32_FLOPS):
                                        else "bytes")
 
 
+def start_parent_build():
+    """Start one nvcc per source of the parent's spread kernels (PARENT_DIR),
+    or return None where they are not there."""
+    from nonbondedslicing_tpu_torch.runtime import kernels
+    if not all(os.path.exists(os.path.join(PARENT_DIR, f))
+               for f in PARENT_SOURCES):
+        return None
+    out = os.path.join(PARENT_DIR, "lib")
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    for f in PARENT_SOURCES:
+        obj = os.path.join(out, f[:-3] + ".o")
+        procs.append((obj, subprocess.Popen(
+            [kernels._nvcc()] + kernels.NVCC_FLAGS
+            + ["-I", str(kernels.CSRC_DIR), "-c", os.path.join(PARENT_DIR, f),
+               "-o", obj], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def load_parent(procs):
+    """Link and load the parent's spread kernels; returns the ctypes library
+    (or None where there are none)."""
+    import ctypes
+    from nonbondedslicing_tpu_torch.runtime import kernels
+    if procs is None:
+        print("parent: no earlier spread kernels in " + PARENT_DIR
+              + ": parent_ms not measured")
+        return None
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"parent: nvcc built {obj}\n" + out)
+    path = os.path.join(PARENT_DIR, "lib", "libnbs_parent_spread.so")
+    proc = subprocess.run([kernels._nvcc()] + kernels.ARCH_FLAGS
+                          + ["-shared", "-o", path] + [o for o, _ in procs],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, "parent: linked " + path + proc.stderr)
+    lib = ctypes.CDLL(path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.nbs_pme_spread.argtypes = [P] * 6 + [I] * 7 + [P]
+    lib.nbs_pme_spread_windows.argtypes = [P] * 5 + [I] * 8 + [P]
+    print(f"parent: the spread kernels of {PARENT_DIR} built")
+    return lib
+
+
+def parent_spread(lib, slot_pos, weight, slot_sub, recip, grid_shape, nsub,
+                  double=False):
+    """The parent design's whole-grid spread as its wrapper called it: a
+    zeroed int64 accumulator, then the kernel and its conversion pass."""
+    import torch
+    dev = slot_pos.device
+    g, _, C = slot_pos.shape
+    acc = torch.zeros((nsub,) + tuple(grid_shape), dtype=torch.int64,
+                      device=dev)
+    grid = torch.empty((nsub,) + tuple(grid_shape),
+                       dtype=torch.float64 if double else torch.float32,
+                       device=dev)
+    err = lib.nbs_pme_spread(
+        slot_pos.data_ptr(), weight.data_ptr(), slot_sub.data_ptr(),
+        recip.data_ptr(), acc.data_ptr(), grid.data_ptr(), g, C, nsub,
+        *grid_shape, int(double), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SmokeFailure(f"parent nbs_pme_spread: CUDA error {err}")
+    return grid
+
+
+def parent_spread_windows(lib, slot_pos, weight, slot_sub, recip, grid_shape,
+                          bricks, nsub):
+    """The parent design's window spread (line owners summing in float)."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import pme_bricks
+    dev = slot_pos.device
+    (px, wx), (py, wy), (pz, wz) = pme_bricks.brick_window(grid_shape, bricks)
+    W = torch.empty(tuple(bricks) + (nsub, wx, wy, wz), dtype=torch.float32,
+                    device=dev)
+    err = lib.nbs_pme_spread_windows(
+        slot_pos.data_ptr(), weight.data_ptr(), slot_sub.data_ptr(),
+        recip.data_ptr(), W.data_ptr(), slot_pos.shape[2], nsub, *bricks, px,
+        py, pz, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SmokeFailure(f"parent nbs_pme_spread_windows: CUDA error {err}")
+    return W
+
+
+_OPS_PER_CALL = {}
+
+
+def device_ops_per_call(fn, key, calls=10):
+    """Kernels and memsets one call of fn puts on the card: those of a
+    profiler trace of ``calls`` calls after a warm-up, per call, rounded (a
+    trace can miss its first event).  Measured at the first call with each
+    ``key`` (a kernel and its variant, whose count the inputs do not
+    change): traces taken late in a long run lose events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if key not in _OPS_PER_CALL:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        _OPS_PER_CALL[key] = round(sum(
+            1 for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith("Memcpy")) / calls)
+    return _OPS_PER_CALL[key]
+
+
+def spread_against_parent(name, key, kernel_fn, parent_fn, reps):
+    """A spread entry's launches per call (``key``: the kernel and variant)
+    and, where the parent's kernels were built, the parent design's launches
+    per call, its time beside the kernel's (in turns parent, kernel, kernel,
+    parent) and how far apart their outputs are."""
+    out = dict(launches_per_call=device_ops_per_call(kernel_fn, key),
+               parent_ms=None)
+    if parent_fn is None:
+        print(f"{name}: {out['launches_per_call']} launches a call")
+        return out
+    import torch
+    out["parent_launches_per_call"] = device_ops_per_call(parent_fn,
+                                                          "parent " + key)
+    ms, out["parent_ms"] = timed_pair(kernel_fn, parent_fn, reps, what=None)
+    new, old = kernel_fn(), parent_fn()
+    torch.cuda.synchronize()
+    out["equals_parent"] = bool(torch.equal(new, old))
+    out["parent_max_abs_diff"] = float((new - old).abs().max())
+    print(f"{name}: kernel {ms:.4f} ms beside the parent design's "
+          f"{out['parent_ms']:.4f} ms ({ms / out['parent_ms']:.3f} of it); "
+          f"{out['launches_per_call']} launches a call, the parent "
+          f"{out['parent_launches_per_call']}; equal to the parent's to the "
+          f"bit: {out['equals_parent']} (max|d| "
+          f"{out['parent_max_abs_diff']:.3e})")
+    return out
+
+
 def pair_counts(slot_pos, slot_ids, slot_excl, box, cutoff, n_real, counts):
     """(pairs within the cutoff that are not excluded, excluded pairs) among
     the real slots of every 27-cell neighbourhood, each unordered pair once,
@@ -447,14 +604,16 @@ def cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np):
 
 
 def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
-                      dispersion=False):
+                      dispersion=False, parent=None):
     """The spread kernel, its double variant (energy evaluations) and the
     interpolation kernel against their plain twins on one path's slot
     tensors: the grid within TOL_GRID of its max and bitwise repeatable, the
     double grid within TOL_GRID64, the forces within TOL_FORCE; CUDA-event
-    times and the bound of each.  ``names`` are the three entries' names.
-    With ``dispersion``, LJPME's pass: C6 weights on the dispersion grid
-    with its convolution kernel (``lam_nn`` the vdW lambdas).  Returns their
+    times and the bound of each, and for the spreads their launches per
+    call, neighbour radius and (``parent``: the parent's library) the
+    parent design's time.  ``names`` are the three entries' names.  With
+    ``dispersion``, LJPME's pass: C6 weights on the dispersion grid with its
+    convolution kernel (``lam_nn`` the vdW lambdas).  Returns their
     results."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_pme
@@ -469,28 +628,43 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     n_grid = nsub * int(np.prod(grid_shape))
     n_charged = int((weight != 0).sum())
     spread_args = (slot_pos, weight, st["slot_sub"], recip, grid_shape, nsub)
+    radius = cuda_pme.spread_radius(grid_shape, cfg["counts"], cfg["skin"],
+                                    plan.box0)
     kw = dict(dispersion=dispersion)
-    grid_k = cuda_pme.pme_spread(*spread_args, **kw)
+    spread_kw = dict(kw, lattice=cfg["counts"], radius=radius)
+
+    def kernel():
+        return cuda_pme.pme_spread(*spread_args, **spread_kw)
+
+    grid_k = kernel()
     grid_p = cuda_pme.pme_spread_plain(*spread_args)
     torch.cuda.synchronize()
     err = float((grid_k - grid_p).abs().max())
     gmax = float(grid_p.abs().max())
     check(err <= TOL_GRID * gmax, f"{spread_name}: grid max|d| {err:.3e} <= "
           f"{TOL_GRID} * max {gmax:.3f}")
-    check(torch.equal(grid_k, cuda_pme.pme_spread(*spread_args, **kw)),
-          f"{spread_name}: bitwise repeatable (fixed-point adds)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_spread(*spread_args, **kw),
+    check(torch.equal(grid_k, kernel()),
+          f"{spread_name}: bitwise repeatable (fixed-point sums)")
+    ms, plain_ms = timed_pair(kernel,
                               lambda: cuda_pme.pme_spread_plain(*spread_args),
                               reps)
     print(f"{spread_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    spread = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    spread = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                  radius=list(radius))
     spread["bound_ms"], spread["bound_by"] = bound(
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 4 * 9 + 4 * n_grid)
+    spread.update(spread_against_parent(
+        spread_name, "pme_spread", kernel,
+        parent and (lambda: parent_spread(parent, *spread_args)), reps))
 
     spread64_args = (slot_pos, weight, st["slot_sub"],
                      recip_box_vectors(box.double()), grid_shape, nsub)
-    grid_k64 = cuda_pme.pme_spread(*spread64_args, double=True, **kw)
+
+    def kernel64():
+        return cuda_pme.pme_spread(*spread64_args, double=True, **spread_kw)
+
+    grid_k64 = kernel64()
     grid_p64 = cuda_pme.pme_spread_plain(*spread64_args, double=True)
     torch.cuda.synchronize()
     err = float((grid_k64 - grid_p64).abs().max())
@@ -499,13 +673,18 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
           f"{spread64_name}: grid max|d| {err:.3e} <= {TOL_GRID64} * max "
           f"{gmax:.3f}")
     ms, plain_ms = timed_pair(
-        lambda: cuda_pme.pme_spread(*spread64_args, double=True, **kw),
+        kernel64,
         lambda: cuda_pme.pme_spread_plain(*spread64_args, double=True), reps)
     print(f"{spread64_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    spread64 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    spread64 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    radius=list(radius))
     spread64["bound_ms"], spread64["bound_by"] = bound(
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 8 * 9 + 8 * n_grid, PEAK_FP64_FLOPS)
+    spread64.update(spread_against_parent(
+        spread64_name, "pme_spread_energies", kernel64,
+        parent and (lambda: parent_spread(parent, *spread64_args,
+                                          double=True)), reps))
 
     if dispersion:
         eterm = pme_mod.dispersion_eterm_np(grid_shape, cfg["dpme_moduli"],
@@ -559,7 +738,7 @@ def window_grid_index(grid_shape, bricks, nsub, device):
 
 
 def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
-                         reps):
+                         reps, parent=None):
     """The four kernels of the window pipeline against their plain twins on
     one path's slot tensors, regrouped brick-major: the windows within
     TOL_GRID of their max and bitwise repeatable, fold and extract equal to
@@ -568,7 +747,9 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
     rolled back by one point, against the whole-grid spread (TOL_GRID of its
     max, each subset's charge to TOL_GRID_SUM: no point dropped), and the
     reciprocal forces of the two pipelines (TOL_FORCE), the window
-    pipeline's bitwise repeatable.  Returns the results by entry name."""
+    pipeline's bitwise repeatable.  The window spread's entry also gets its
+    launches per call and (``parent``: the parent's library) the parent
+    design's time.  Returns the results by entry name."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_pme, pme_bricks
     from nonbondedslicing_tpu_torch.ops import pme as pme_mod
@@ -612,11 +793,17 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
           f"{tuple(W_k.shape)} max|d| {err:.3e} <= {TOL_GRID} * max "
           f"{wmax:.3f}")
     check(torch.equal(W_k, cuda_pme.pme_spread_windows(*spread_args)),
-          f"pme_spread_windows{suffix}: bitwise repeatable (no atomics)")
+          f"pme_spread_windows{suffix}: bitwise repeatable (fixed-point "
+          f"sums)")
     record("pme_spread_windows", err,
            lambda: cuda_pme.pme_spread_windows(*spread_args),
            lambda: cuda_pme.pme_spread_windows_plain(*spread_args),
            n_charged * SPREAD_OPS, slot_bytes + 4 * n_window)
+    out["pme_spread_windows" + suffix].update(spread_against_parent(
+        "pme_spread_windows" + suffix, "pme_spread_windows",
+        lambda: cuda_pme.pme_spread_windows(*spread_args),
+        parent and (lambda: parent_spread_windows(parent, *spread_args)),
+        reps))
 
     shifted = cuda_pme.pme_fold(W_k)
     check(torch.equal(shifted, cuda_pme.pme_fold_plain(W_k)),
@@ -672,8 +859,10 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
            4 * n_window + slot_bytes + 4 * gb * 3 * Cb)
 
     # the two designs against each other
+    stencil_kw = dict(lattice=counts, radius=cuda_pme.spread_radius(
+        grid_shape, counts, cfg["skin"], plan.box0))
     grid_s = cuda_pme.pme_spread(slot_pos, st["slot_q"], st["slot_sub"],
-                                 recip, grid_shape, nsub)
+                                 recip, grid_shape, nsub, **stencil_kw)
     grid_w = torch.roll(shifted, (-1, -1, -1), (1, 2, 3))
     err = float((grid_w - grid_s).abs().max())
     gmax = float(grid_s.abs().max())
@@ -688,7 +877,7 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
     kw = dict(grid_shape=grid_shape, eterm=eterm,
               slice_subset_pairs=slice_subsets(nsub), energies=False)
     _, f_s = cuda_pme.pme_reciprocal(slot_pos, st["slot_q"], st["slot_sub"],
-                                     box, lam_c_nn, **kw)
+                                     box, lam_c_nn, **kw, **stencil_kw)
     f_w = [pme_bricks.bricks_to_cells(cuda_pme.pme_reciprocal(
         pos_b, q_b, sub_b, box, lam_c_nn, pipeline="grid", bricks=bricks,
         **kw)[1].transpose(1, 2), counts, bricks).transpose(1, 2)
@@ -854,11 +1043,13 @@ def main():
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "no JAX module is loaded")
 
-    # ---- 2. build
+    # ---- 2. build (and, beside it, the parent's spread kernels)
     t0 = time.time()
+    parent_procs = start_parent_build()
     LIBRARY.build()
     print(f"build: {LIBRARY.path.name} in {time.time() - t0:.1f} s "
           f"(nvcc {LIBRARY.build_seconds:.1f} s)")
+    parent = load_parent(parent_procs)
     for line in LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("ptxas: " + line.strip())
@@ -925,7 +1116,7 @@ def main():
 
     results.update(pme_kernel_checks(
         ("pme_spread", "pme_spread_energies", "pme_interp"), slot_pos, st,
-        box, cfg, plan, lam_c_nn, reps))
+        box, cfg, plan, lam_c_nn, reps, parent=parent))
 
     # ---- 4. whole evaluation: card f32 vs CPU f64 (plain twins)
     reference = evaluation_check("evaluation", plan, capacity, apply, st, pos,
@@ -1015,7 +1206,7 @@ def main():
     results.update(pme_kernel_checks(
         ("pme_spread_solute", "pme_spread_energies_solute",
          "pme_interp_solute"), s_slot_pos, s_st, box,
-        s_cfg, s_plan, s_lam_c_nn, reps))
+        s_cfg, s_plan, s_lam_c_nn, reps, parent=parent))
 
     s_reference = evaluation_check(
         "solute evaluation", s_plan, s_capacity, s_apply, s_st, s_pos, box,
@@ -1054,9 +1245,10 @@ def main():
 
     # ---- 7. the brick-window PME pipeline (pme_pipeline="grid")
     results.update(window_kernel_checks("", slot_pos, st, box, cfg, plan,
-                                        lam_c_nn, reps))
+                                        lam_c_nn, reps, parent=parent))
     results.update(window_kernel_checks("_solute", s_slot_pos, s_st, box,
-                                        s_cfg, s_plan, s_lam_c_nn, reps))
+                                        s_cfg, s_plan, s_lam_c_nn, reps,
+                                        parent=parent))
     prepare_g, apply_g, cfg_g = fused_mod.make_fused_engine(
         plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
         energies=True, pme_pipeline="grid")
@@ -1155,7 +1347,7 @@ def main():
             l_pc, energies, n_pair, 0, cell_kernel=False)
     results.update(pme_kernel_checks(DISPERSION_KERNELS, slot_pos, l_st, box,
                                      l_cfg, l_plan, lam_v_nn, reps,
-                                     dispersion=True))
+                                     dispersion=True, parent=parent))
     evaluation_check("ljpme evaluation", l_plan, capacity, l_apply, l_st,
                      pos, box, gvals, l_data, pos_np, box_np, np.ones(2))
 
@@ -1212,7 +1404,8 @@ def main():
             ls_pc, energies, s_n_pair, s_n_excl, cell_kernel=True)
     results.update(pme_kernel_checks(
         tuple(k + "_solute" for k in DISPERSION_KERNELS), s_slot_pos, ls_st,
-        box, ls_cfg, ls_plan, s_lam_v_nn, reps, dispersion=True))
+        box, ls_cfg, ls_plan, s_lam_v_nn, reps, dispersion=True,
+        parent=parent))
     reset_launches()
     evaluation_check("solute ljpme evaluation", ls_plan, s_capacity,
                      ls_apply, ls_st, s_pos, box, s_gvals, ls_data, s_pos_np,

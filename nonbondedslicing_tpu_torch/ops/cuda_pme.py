@@ -12,6 +12,17 @@ transforms of both are ``torch.fft.rfftn`` / ``irfftn`` (cuFFT on the card).
 along an axis is (floor(t) + k) mod n, t the scaled fractional coordinate,
 as in the JAX package.
 
+The spread kernel is owner-computes: the slot groups lie on a lattice of
+fractional cells (``lattice``: the cell counts, or the bricks of the window
+pipeline's slot tensors), and a block owns the grid points of its group's
+fractional range, ``spread_owned_ranges``.  It gathers the slots of the
+groups within ``spread_radius`` of its own whose stencils reach its points,
+sums their contributions in shared memory in 64-bit fixed point and stores
+each point once: one launch, no global atomics, the grid bitwise
+repeatable.  The radius covers the stencil's reach and the drift an atom
+may make between slot rebuilds (half the skin), so the CUDA wrapper takes
+both the lattice and the radius.
+
 ``"grid"``: the JAX package's brick-window pipeline
 (``NBS_PME_PIPELINE=grid``, ``pallas_pme.py:489-513``) on brick-major slot
 tensors (``pme_bricks.cells_to_bricks``).  ``pme_spread_windows``
@@ -29,8 +40,8 @@ phase of the spectrum, which cancels in |S|^2 and passes through the
 diagonal convolution unchanged.  A spline point that falls outside its
 brick's window (an atom that drifted more than one grid point past it) drops
 out, as in the JAX kernels; the skin guard of the MD step keeps atoms inside.
-No kernel of this pipeline uses atomics: its grids and forces are bitwise
-repeatable.
+No kernel of this pipeline uses global atomics: its grids and forces are
+bitwise repeatable.
 
 Slot tensors: ``slot_pos`` (g, 3, C) float, ``slot_q`` (g, C) float (0 on
 pad slots), ``slot_sub`` (g, C) int32; g counts cells (cell-major) or bricks
@@ -65,9 +76,10 @@ from .pme import bsplines, pme_slice_energies_ri, rfft_energy_weights
 from .pme_bricks import brick_window, check_two_piece_windows
 
 PME_ORDER = 5
-# the window spread kernel keeps a subset's window of a brick in shared
-# memory: a block's 227 KB less its 20 KB of staged atoms
-MAX_WINDOW_BYTES = 232448 - 20480
+# grid points added to an atom's drift in spread_radius: the rounding of
+# float32 fractional coordinates (cell ids at the slot rebuild, grid bases
+# in the kernel) is far smaller for positions within many box lengths
+SPREAD_ROUNDING = 0.05
 
 # launches of the CUDA kernels; "_dispersion" after the kernel's name: the
 # LJPME pass
@@ -104,6 +116,34 @@ def _stencil_index(base, grid_shape, sub):
     iz = (base[:, 2:3] + k) % nz
     return (((sub[:, None, None, None] * nx + ix[:, :, None, None]) * ny
              + iy[:, None, :, None]) * nz + iz[:, None, None, :])
+
+
+def spread_owned_ranges(n, nc):
+    """(nc + 1,) int64: group c of ``nc`` on an axis of ``n`` grid points
+    owns the points [start[c], start[c + 1]), start[c] = ceil(c n / nc): the
+    grid points whose fractional coordinate lies in the group's cell range,
+    as the spread kernel's blocks own them."""
+    c = torch.arange(nc + 1, dtype=torch.int64)
+    return (c * n + nc - 1) // nc
+
+
+def spread_radius(grid_shape, lattice, skin, box):
+    """Neighbour radius R per axis of the spread kernel, host ints: the
+    fewest groups of the ``lattice`` (n / nc grid points wide) that cover
+    the stencil's reach, PME_ORDER - 1 points above an atom's base, plus
+    the drift an atom may make after its slot rebuild (half the ``skin`` in
+    nm, in grid points of the axis through the reciprocal box of the
+    host-side ``box``, so triclinic boxes too) and SPREAD_ROUNDING.  An atom
+    of a group more than R below a group then ends its stencil before the
+    group's owned points, and one more than R above starts it after them
+    (its base lies at most its drift and one point below its cell)."""
+    n = torch.as_tensor(grid_shape, dtype=torch.float64)
+    nc = torch.as_tensor(lattice, dtype=torch.float64)
+    recip = recip_box_vectors(torch.as_tensor(np.asarray(box),
+                                              dtype=torch.float64))
+    drift = 0.5 * float(skin) * torch.linalg.norm(recip, dim=0) * n
+    reach = PME_ORDER - 1 + drift + SPREAD_ROUNDING
+    return tuple(int(r) for r in torch.ceil(reach * nc / n))
 
 
 def pme_spread_plain(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
@@ -283,12 +323,14 @@ def _check_slots(slot_pos, slot_q, slot_sub, dev):
 
 
 def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
-               double=False, dispersion=False):
+               double=False, dispersion=False, lattice=None, radius=None):
     """Charge grids (nsub, nx, ny, nz): float32, or with ``double`` float64
     from a float64 ``recip``, splines and weights in double.  CPU tensors
-    take the plain twin; CUDA tensors launch the kernel (deterministic
-    fixed-point adds).  ``dispersion`` counts the launch as the LJPME
-    pass's."""
+    take the plain twin.  CUDA tensors launch the kernel (one launch,
+    fixed-point sums in shared memory, bitwise repeatable) and need the
+    slot groups' ``lattice`` (groups per axis; cell- or brick-major) and
+    the neighbour ``radius`` per axis from :func:`spread_radius`.
+    ``dispersion`` counts the launch as the LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_spread_plain(slot_pos, slot_q, slot_sub, recip,
@@ -296,14 +338,22 @@ def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
     if dev.type != "cuda":
         raise ValueError(f"pme_spread: unsupported device {dev}")
     g, C = _check_slots(slot_pos, slot_q, slot_sub, dev)
+    if lattice is None or radius is None:
+        raise ValueError("pme_spread: CUDA tensors need the slot groups' "
+                         "lattice and the spread_radius")
+    if g != lattice[0] * lattice[1] * lattice[2]:
+        raise ValueError(f"pme_spread: {g} slot groups for the lattice "
+                         f"{tuple(lattice)}")
+    if min(grid_shape) < PME_ORDER:
+        raise ValueError(f"pme_spread: a grid of {tuple(grid_shape)} points "
+                         f"is narrower than the spline stencil")
     real = torch.float64 if double else torch.float32
     _check("recip", recip, (3, 3), real, dev)
     nx, ny, nz = grid_shape
-    acc = torch.zeros((nsub, nx, ny, nz), dtype=torch.int64, device=dev)
     grid = torch.empty((nsub, nx, ny, nz), dtype=real, device=dev)
     LIBRARY.call("nbs_pme_spread", slot_pos.data_ptr(), slot_q.data_ptr(),
-                 slot_sub.data_ptr(), recip.data_ptr(), acc.data_ptr(),
-                 grid.data_ptr(), g, C, nsub, nx, ny, nz, int(bool(double)),
+                 slot_sub.data_ptr(), recip.data_ptr(), grid.data_ptr(),
+                 *lattice, C, nsub, nx, ny, nz, *radius, int(bool(double)),
                  torch.cuda.current_stream(dev).cuda_stream)
     _count("pme_spread", dispersion, double)
     return grid
@@ -341,9 +391,10 @@ def _check_windows(name, W, dev):
 def pme_spread_windows(slot_pos, slot_q, slot_sub, recip, grid_shape, bricks,
                        nsub, dispersion=False):
     """Charge windows (bx, by, bz, nsub, wx, wy, wz) of brick-major slots.
-    CPU tensors take the plain twin; CUDA tensors launch the kernel (one
-    block per brick, no atomics: bitwise repeatable).  ``dispersion`` counts
-    the launch as the LJPME pass's."""
+    CPU tensors take the plain twin; CUDA tensors launch the kernel (a block
+    per brick and subset, fixed-point sums in shared memory, no global
+    atomics: bitwise repeatable).  ``dispersion`` counts the launch as the
+    LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_spread_windows_plain(slot_pos, slot_q, slot_sub, recip,
@@ -357,11 +408,6 @@ def pme_spread_windows(slot_pos, slot_q, slot_sub, recip, grid_shape, bricks,
                          f"{tuple(bricks)}")
     _check("recip", recip, (3, 3), torch.float32, dev)
     (px, wx), (py, wy), (pz, wz) = brick_window(grid_shape, bricks, PME_ORDER)
-    if 4 * wx * wy * wz > MAX_WINDOW_BYTES:
-        raise ValueError(
-            f"pme_spread_windows: a window of {(wx, wy, wz)} points does not "
-            f"fit a block's shared memory; use more bricks or the default "
-            f"pipeline (pme_pipeline=\"stencil\")")
     W = torch.empty(tuple(bricks) + (nsub, wx, wy, wz), dtype=torch.float32,
                     device=dev)
     LIBRARY.call("nbs_pme_spread_windows", slot_pos.data_ptr(),
@@ -448,7 +494,8 @@ PIPELINES = ("stencil", "grid")
 
 def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                    eterm, slice_subset_pairs, energies=True,
-                   pipeline="stencil", bricks=None, dispersion=False):
+                   pipeline="stencil", bricks=None, dispersion=False,
+                   lattice=None, radius=None):
     """Sliced PME for slot-ordered atoms.
 
     ``eterm`` is the z-half convolution kernel (nx, ny, nz//2+1) in the
@@ -461,8 +508,11 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
     slot grouping) or ``"grid"``, the window pipeline, which takes
     brick-major slot tensors and their ``bricks`` (see the module
     docstring) and raises ValueError unless every brick has at least 6 grid
-    points per axis.  Returns (slice_energies (S,) float64 (zeros unless
-    ``energies``) and slot forces (g, 3, C) in the grouping given).
+    points per axis.  ``lattice`` and ``radius`` are the whole-grid spread's
+    (:func:`pme_spread`; needed on CUDA tensors by the stencil pipeline and
+    by the energies' double spread of either).  Returns (slice_energies (S,)
+    float64 (zeros unless ``energies``) and slot forces (g, 3, C) in the
+    grouping given).
     """
     if pipeline not in PIPELINES:
         raise ValueError(f"pipeline must be one of {PIPELINES}, got "
@@ -480,14 +530,16 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                                            dispersion), dispersion)
     else:
         grid = pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
-                          dispersion=dispersion)
+                          dispersion=dispersion, lattice=lattice,
+                          radius=radius)
     spec = torch.fft.rfftn(grid, dim=(1, 2, 3))
     n_slices = np.asarray(slice_subset_pairs).shape[0]
     if energies:
         grid64 = pme_spread(slot_pos, slot_q, slot_sub,
                             recip_box_vectors(box.to(torch.float64)),
                             grid_shape, nsub, double=True,
-                            dispersion=dispersion)
+                            dispersion=dispersion, lattice=lattice,
+                            radius=radius)
         spec64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
         w = torch.as_tensor(rfft_energy_weights(grid_shape[2]),
                             dtype=torch.float64, device=dev)

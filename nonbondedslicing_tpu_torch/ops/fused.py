@@ -198,6 +198,12 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     excl_pairs = np.asarray(plan.exclusion_pairs,
                             dtype=np.int64).reshape(-1, 2)
     inv_width = np.asarray(counts) / neighbors._perpendicular_widths(plan.box0)
+    # the whole-grid spread's slot groups (cells, or the window pipeline's
+    # bricks) and its neighbour radius on each PME grid
+    lattice = bricks if use_windows else counts
+    spread_radius = {
+        key: cuda_pme.spread_radius(cfg[key], lattice, cfg["skin"], plan.box0)
+        for key in ("pme_grid", "dispersion_grid") if key in cfg}
     eterm_cache = {}
     index_cache = {}
 
@@ -384,7 +390,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 kw = dict(grid_shape=cfg[grid_key],
                           eterm=_eterm(box, dispersion),
                           slice_subset_pairs=slice_pairs, energies=energies,
-                          dispersion=dispersion)
+                          dispersion=dispersion, lattice=lattice,
+                          radius=spread_radius[grid_key])
                 if not use_windows:
                     return cuda_pme.pme_reciprocal(
                         slot_pos, state[weight], state["slot_sub"], box,

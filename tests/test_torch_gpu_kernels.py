@@ -20,6 +20,8 @@ from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
 
 from torch_pair_cases import (PAIR_CASES, half_box_arrays,
                               pair_case_arrays, pair_case_slots)
+from torch_spread_cases import (SPREAD_CASES, spread_case_slots,
+                                window_bricks)
 
 pytestmark = pytest.mark.gpu
 
@@ -76,8 +78,13 @@ def _state(plan, positions, dev, switch=False):
     g, C = cfg["pair"].n_cells, cfg["pair"].capacity
     slot_pos = (torch.cat([st["pos0w"], pos.new_zeros((1, 3))])[st["slots"]]
                 .reshape(g, C, 3).transpose(1, 2) + st["padfix3"]).contiguous()
+    spread_kw = {key: dict(lattice=cfg["counts"],
+                           radius=cuda_pme.spread_radius(
+                               cfg[key], cfg["counts"], cfg["skin"],
+                               plan.box0))
+                 for key in ("pme_grid", "dispersion_grid") if key in cfg}
     return dict(prep=prep, app=app, cfg=cfg, data=data, pos=pos, box=box,
-                gvals=gvals, st=st, slot_pos=slot_pos)
+                gvals=gvals, st=st, slot_pos=slot_pos, spread_kw=spread_kw)
 
 
 @pytest.mark.parametrize("energies", [False, True])
@@ -230,18 +237,19 @@ def test_pme_kernels_match_plain(cuda):
     st = s["st"]
     grid_shape = s["cfg"]["pme_grid"]
     recip = recip_box_vectors(s["box"])
+    kw = s["spread_kw"]["pme_grid"]
     grid_k = cuda_pme.pme_spread(s["slot_pos"], st["slot_q"], st["slot_sub"],
-                                 recip, grid_shape, plan.num_subsets)
+                                 recip, grid_shape, plan.num_subsets, **kw)
     grid_p = cuda_pme.pme_spread_plain(s["slot_pos"], st["slot_q"],
                                        st["slot_sub"], recip, grid_shape,
                                        plan.num_subsets)
     torch.cuda.synchronize()
     assert float((grid_k - grid_p).abs().max()) <= 2e-5 * float(
         grid_p.abs().max())
-    # fixed-point atomics: the spread grid is bitwise repeatable
+    # fixed-point sums: the spread grid is bitwise repeatable
     grid_k2 = cuda_pme.pme_spread(s["slot_pos"], st["slot_q"],
                                   st["slot_sub"], recip, grid_shape,
-                                  plan.num_subsets)
+                                  plan.num_subsets, **kw)
     assert torch.equal(grid_k, grid_k2)
     # the double variant of energy evaluations: exact but for the 2^-40
     # fixed-point steps of its adds
@@ -249,7 +257,7 @@ def test_pme_kernels_match_plain(cuda):
     before = dict(cuda_pme.LAUNCHES)
     grid_k64 = cuda_pme.pme_spread(s["slot_pos"], st["slot_q"],
                                    st["slot_sub"], recip64, grid_shape,
-                                   plan.num_subsets, double=True)
+                                   plan.num_subsets, double=True, **kw)
     grid_p64 = cuda_pme.pme_spread_plain(s["slot_pos"], st["slot_q"],
                                          st["slot_sub"], recip64, grid_shape,
                                          plan.num_subsets, double=True)
@@ -289,11 +297,13 @@ def test_pme_kernels_dispersion_pass_match_plain(cuda):
     recip = recip_box_vectors(s["box"])
     before = dict(cuda_pme.LAUNCHES)
     args = (s["slot_pos"], c6, st["slot_sub"], recip, grid_shape, nsub)
-    grid_k = cuda_pme.pme_spread(*args, dispersion=True)
+    kw = s["spread_kw"]["dispersion_grid"]
+    grid_k = cuda_pme.pme_spread(*args, dispersion=True, **kw)
     grid_p = cuda_pme.pme_spread_plain(*args)
     args64 = (s["slot_pos"], c6, st["slot_sub"],
               recip_box_vectors(s["box"].double()), grid_shape, nsub)
-    grid_k64 = cuda_pme.pme_spread(*args64, double=True, dispersion=True)
+    grid_k64 = cuda_pme.pme_spread(*args64, double=True, dispersion=True,
+                                   **kw)
     grid_p64 = cuda_pme.pme_spread_plain(*args64, double=True)
     eterm = torch.as_tensor(tpme.dispersion_eterm_np(
         grid_shape, cfg["dpme_moduli"], plan.box0, plan.dispersion_alpha),
@@ -317,6 +327,93 @@ def test_pme_kernels_dispersion_pass_match_plain(cuda):
     assert made == {k: int(k in ("pme_spread_dispersion",
                                  "pme_spread_dispersion_energies",
                                  "pme_interp_dispersion")) for k in before}
+
+
+def _spread_case_on_card(case, dev, bricks=None):
+    """A case of tests/torch_spread_cases.py as the kernels take it: float32
+    slot tensors on the card."""
+    s = spread_case_slots(case, bricks=bricks)
+    return dict(s, pos=s["pos"].float().to(dev), q=s["q"].float().to(dev),
+                sub=s["sub"].to(dev),
+                box=torch.as_tensor(s["box"], device=dev))
+
+
+@pytest.mark.parametrize("case", sorted(SPREAD_CASES))
+def test_spread_kernel_hard_shapes_match_plain(cuda, case):
+    """B2 at the hard shapes of its owner decomposition (cubic, 28 points on
+    6 groups, triclinic, atoms drifted half the skin towards every face,
+    brick-major groups): charges and C6-like weights (0.05 |q|), float and
+    double, against the twin (2e-5 of the grid's max; 1e-7 in double), and
+    bitwise repeatable over two launches."""
+    s = _spread_case_on_card(case, cuda)
+    kw = dict(lattice=s["lattice"], radius=cuda_pme.spread_radius(
+        s["grid"], s["lattice"], s["skin"], s["box"].cpu()))
+    for weight in (s["q"], 0.05 * s["q"].abs()):
+        for double, tol in ((False, 2e-5), (True, 1e-7)):
+            recip = recip_box_vectors(s["box"].to(
+                torch.float64 if double else torch.float32))
+            args = (s["pos"], weight, s["sub"], recip, s["grid"], s["nsub"])
+            grid_k = cuda_pme.pme_spread(*args, double=double, **kw)
+            grid_p = cuda_pme.pme_spread_plain(*args, double=double)
+            again = cuda_pme.pme_spread(*args, double=double, **kw)
+            torch.cuda.synchronize()
+            assert grid_k.dtype == grid_p.dtype
+            assert float((grid_k - grid_p).abs().max()) <= tol * float(
+                grid_p.abs().max())
+            assert torch.equal(grid_k, again)
+
+
+@pytest.mark.parametrize("case", sorted(SPREAD_CASES))
+def test_window_spread_hard_shapes_match_plain(cuda, case):
+    """The window spread at the same shapes, its slots on bricks of the
+    case's cells: within 2e-5 of the windows' max of the twin, bitwise
+    repeatable over two launches."""
+    bricks = window_bricks(case)
+    s = _spread_case_on_card(case, cuda, bricks=bricks)
+    args = (s["pos"], s["q"], s["sub"], recip_box_vectors(s["box"].float()),
+            s["grid"], bricks, s["nsub"])
+    W_k = cuda_pme.pme_spread_windows(*args)
+    W_p = cuda_pme.pme_spread_windows_plain(*args)
+    again = cuda_pme.pme_spread_windows(*args)
+    torch.cuda.synchronize()
+    assert float((W_k - W_p).abs().max()) <= 2e-5 * float(W_p.abs().max())
+    assert torch.equal(W_k, again)
+
+
+def test_spread_is_one_launch_without_an_accumulator(cuda):
+    """One spread, float or double: one call counted, one kernel on the card
+    (no zeroing, no conversion pass) and one allocation, its grid's (no
+    int64 accumulator)."""
+    from torch.profiler import ProfilerActivity, profile
+    s = _spread_case_on_card("cubic", cuda)
+    kw = dict(lattice=s["lattice"], radius=cuda_pme.spread_radius(
+        s["grid"], s["lattice"], s["skin"], s["box"].cpu()))
+    for double in (False, True):
+        recip = recip_box_vectors(s["box"].to(
+            torch.float64 if double else torch.float32))
+        args = (s["pos"], s["q"], s["sub"], recip, s["grid"], s["nsub"])
+        cuda_pme.pme_spread(*args, double=double, **kw)   # the build
+        torch.cuda.synchronize()
+        before = dict(cuda_pme.LAUNCHES)
+        stats = torch.cuda.memory_stats()
+        grid = cuda_pme.pme_spread(*args, double=double, **kw)
+        after = torch.cuda.memory_stats()
+        name = "pme_spread" + ("_energies" if double else "")
+        assert {k: cuda_pme.LAUNCHES[k] - before[k] for k in before} == {
+            k: int(k == name) for k in before}
+        assert (after["allocation.all.allocated"]
+                - stats["allocation.all.allocated"]) == 1
+        assert (after["allocated_bytes.all.allocated"]
+                - stats["allocated_bytes.all.allocated"]) < (
+            grid.numel() * grid.element_size() + 1024)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cuda_pme.pme_spread(*args, double=double, **kw)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "spread_owner_kernel" in kernels[0], (
+            kernels)
 
 
 @pytest.mark.parametrize("method", ["PME", "LJPME"])
@@ -393,14 +490,16 @@ def test_window_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert torch.isfinite(W_k).all()
     assert float((W_k - W_p).abs().max()) <= 2e-5 * float(W_p.abs().max())
-    # one owner per window line, atoms in slot order: bitwise repeatable
+    # fixed-point sums: bitwise repeatable
     assert torch.equal(W_k, cuda_pme.pme_spread_windows(*args))
 
     grid_k = cuda_pme.pme_fold(W_k)
     assert torch.equal(grid_k, cuda_pme.pme_fold_plain(W_k))
     # the two spread designs give the same grid, up to the shift
-    grid_s = cuda_pme.pme_spread(s["pos"], s["q"], s["sub"], s["recip"],
-                                 s["grid"], s["nsub"])
+    grid_s = cuda_pme.pme_spread(
+        s["pos"], s["q"], s["sub"], s["recip"], s["grid"], s["nsub"],
+        lattice=s["bricks"], radius=cuda_pme.spread_radius(
+            s["grid"], s["bricks"], 0.0, 4.2 * np.eye(3)))
     assert float((torch.roll(grid_k, (-1, -1, -1), (1, 2, 3)) - grid_s)
                  .abs().max()) <= 2e-5 * float(grid_s.abs().max())
 

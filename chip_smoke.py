@@ -76,17 +76,23 @@ their shared design in csrc/spread_common.cuh) are owner-computes: a block
 owns a region of points (a slot group's grid points, or a brick's window),
 gathers the atoms that reach it, sums them in shared memory in 64-bit fixed
 point and stores each point once, in one launch without global atomics.
-Each spread entry counts the kernels one call puts on the card
+The whole-grid interpolation (csrc/pme_interp.cu) gives each atom two
+threads in two warps, splitting its 25 stencil lines 13 and 12, reads each
+line's 5 z points as aligned float4 (float2) chunks and adds the two shares
+in a fixed order; the fold (csrc/pme_fold.cu) gives a warp one output
+line and stages that line's window rows whole.  Each spread, interpolation
+and fold entry counts the kernels one call puts on the card
 (launches_per_call, from a profiler trace of ten calls of each kernel and
-variant at its first entry) and gives the
-whole-grid spread's neighbour radius per axis (radius).  When
-build/parent_csrc/ (or $NBS_PARENT_CSRC) holds an earlier version's
-pme_spread.cu and pme_spread_windows.cu, with the C entry points of the
-design that summed with global atomics into a zeroed int64 accumulator
-(``git show <rev>:nonbondedslicing_tpu_torch/csrc/<file>``), they are built
-beside the kernels and every spread entry also gets that design's time
-from this run, in turns parent, kernel, kernel, parent (parent_ms), its
-launches per call, and whether its grids equal the kernel's to the bit.
+variant at its first entry); the spreads give the whole-grid spread's
+neighbour radius per axis (radius), and every whole-grid interpolation
+entry checks that two launches give the same forces to the bit.  When build/parent_csrc/ (or
+$NBS_PARENT_CSRC) holds an earlier version's pme_interp.cu and pme_fold.cu
+with the same C entry points (``git show
+<rev>:nonbondedslicing_tpu_torch/csrc/<file>``), they are built beside the
+kernels and every pme_interp and pme_fold entry also gets that version's
+time from this run, in turns parent, kernel, kernel, parent (parent_ms),
+its launches per call, and how far its output is from the kernel's
+(equals_parent, parent_max_abs_diff); the fold must equal it to the bit.
 
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
@@ -118,10 +124,11 @@ from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
-# an earlier version's spread kernels to time beside the current ones
+# an earlier version's interpolation and fold kernels to time beside the
+# current ones
 PARENT_DIR = os.environ.get("NBS_PARENT_CSRC",
                             os.path.join(ROOT, "build", "parent_csrc"))
-PARENT_SOURCES = ("pme_spread.cu", "pme_spread_windows.cu")
+PARENT_SOURCES = ("pme_interp.cu", "pme_fold.cu")
 
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
@@ -349,8 +356,8 @@ def bound(ops, nbytes, peak_flops=PEAK_FP32_FLOPS):
 
 
 def start_parent_build():
-    """Start one nvcc per source of the parent's spread kernels (PARENT_DIR),
-    or return None where they are not there."""
+    """Start one nvcc per source of the parent's kernels (PARENT_DIR), or
+    return None where they are not there."""
     from nonbondedslicing_tpu_torch.runtime import kernels
     if not all(os.path.exists(os.path.join(PARENT_DIR, f))
                for f in PARENT_SOURCES):
@@ -369,67 +376,58 @@ def start_parent_build():
 
 
 def load_parent(procs):
-    """Link and load the parent's spread kernels; returns the ctypes library
-    (or None where there are none)."""
+    """Link and load the parent's kernels; returns the ctypes library (or
+    None where there are none)."""
     import ctypes
     from nonbondedslicing_tpu_torch.runtime import kernels
     if procs is None:
-        print("parent: no earlier spread kernels in " + PARENT_DIR
+        print("parent: no earlier kernels in " + PARENT_DIR
               + ": parent_ms not measured")
         return None
     for obj, proc in procs:
         out, _ = proc.communicate()
         check(proc.returncode == 0, f"parent: nvcc built {obj}\n" + out)
-    path = os.path.join(PARENT_DIR, "lib", "libnbs_parent_spread.so")
+    path = os.path.join(PARENT_DIR, "lib", "libnbs_parent.so")
     proc = subprocess.run([kernels._nvcc()] + kernels.ARCH_FLAGS
                           + ["-shared", "-o", path] + [o for o, _ in procs],
                           capture_output=True, text=True)
     check(proc.returncode == 0, "parent: linked " + path + proc.stderr)
     lib = ctypes.CDLL(path)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.nbs_pme_spread.argtypes = [P] * 6 + [I] * 7 + [P]
-    lib.nbs_pme_spread_windows.argtypes = [P] * 5 + [I] * 8 + [P]
-    print(f"parent: the spread kernels of {PARENT_DIR} built")
+    lib.nbs_pme_interp.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.nbs_pme_fold.argtypes = [P] * 2 + [I] * 7 + [P]
+    print(f"parent: the kernels of {PARENT_DIR} built")
     return lib
 
 
-def parent_spread(lib, slot_pos, weight, slot_sub, recip, grid_shape, nsub,
-                  double=False):
-    """The parent design's whole-grid spread as its wrapper called it: a
-    zeroed int64 accumulator, then the kernel and its conversion pass."""
+def parent_interp(lib, phi, slot_pos, weight, slot_sub, recip):
+    """The parent's whole-grid interpolation, called as its wrapper calls
+    it."""
     import torch
     dev = slot_pos.device
     g, _, C = slot_pos.shape
-    acc = torch.zeros((nsub,) + tuple(grid_shape), dtype=torch.int64,
-                      device=dev)
-    grid = torch.empty((nsub,) + tuple(grid_shape),
-                       dtype=torch.float64 if double else torch.float32,
-                       device=dev)
-    err = lib.nbs_pme_spread(
-        slot_pos.data_ptr(), weight.data_ptr(), slot_sub.data_ptr(),
-        recip.data_ptr(), acc.data_ptr(), grid.data_ptr(), g, C, nsub,
-        *grid_shape, int(double), torch.cuda.current_stream(dev).cuda_stream)
+    forces = torch.empty((g, 3, C), dtype=torch.float32, device=dev)
+    err = lib.nbs_pme_interp(
+        phi.data_ptr(), slot_pos.data_ptr(), weight.data_ptr(),
+        slot_sub.data_ptr(), recip.data_ptr(), forces.data_ptr(), g, C,
+        *phi.shape[1:], torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise SmokeFailure(f"parent nbs_pme_spread: CUDA error {err}")
-    return grid
+        raise SmokeFailure(f"parent nbs_pme_interp: CUDA error {err}")
+    return forces
 
 
-def parent_spread_windows(lib, slot_pos, weight, slot_sub, recip, grid_shape,
-                          bricks, nsub):
-    """The parent design's window spread (line owners summing in float)."""
+def parent_fold(lib, W):
+    """The parent's fold, called as its wrapper calls it."""
     import torch
-    from nonbondedslicing_tpu_torch.ops import pme_bricks
-    dev = slot_pos.device
-    (px, wx), (py, wy), (pz, wz) = pme_bricks.brick_window(grid_shape, bricks)
-    W = torch.empty(tuple(bricks) + (nsub, wx, wy, wz), dtype=torch.float32,
-                    device=dev)
-    err = lib.nbs_pme_spread_windows(
-        slot_pos.data_ptr(), weight.data_ptr(), slot_sub.data_ptr(),
-        recip.data_ptr(), W.data_ptr(), slot_pos.shape[2], nsub, *bricks, px,
-        py, pz, torch.cuda.current_stream(dev).cuda_stream)
+    bricks, nsub, w = tuple(W.shape[:3]), W.shape[3], tuple(W.shape[4:])
+    p = tuple(wa - 6 for wa in w)
+    grid = torch.empty((nsub,) + tuple(b * pa for b, pa in zip(bricks, p)),
+                       dtype=torch.float32, device=W.device)
+    err = lib.nbs_pme_fold(W.data_ptr(), grid.data_ptr(), nsub, *bricks, *p,
+                           torch.cuda.current_stream(W.device).cuda_stream)
     if err:
-        raise SmokeFailure(f"parent nbs_pme_spread_windows: CUDA error {err}")
-    return W
+        raise SmokeFailure(f"parent nbs_pme_fold: CUDA error {err}")
+    return grid
 
 
 _OPS_PER_CALL = {}
@@ -457,10 +455,10 @@ def device_ops_per_call(fn, key, calls=10):
     return _OPS_PER_CALL[key]
 
 
-def spread_against_parent(name, key, kernel_fn, parent_fn, reps):
-    """A spread entry's launches per call (``key``: the kernel and variant)
-    and, where the parent's kernels were built, the parent design's launches
-    per call, its time beside the kernel's (in turns parent, kernel, kernel,
+def against_parent(name, key, kernel_fn, parent_fn, reps):
+    """An entry's launches per call (``key``: the kernel and variant) and,
+    where ``parent_fn`` runs the parent's kernel, the parent's launches per
+    call, its time beside the kernel's (in turns parent, kernel, kernel,
     parent) and how far apart their outputs are."""
     out = dict(launches_per_call=device_ops_per_call(kernel_fn, key),
                parent_ms=None)
@@ -475,7 +473,7 @@ def spread_against_parent(name, key, kernel_fn, parent_fn, reps):
     torch.cuda.synchronize()
     out["equals_parent"] = bool(torch.equal(new, old))
     out["parent_max_abs_diff"] = float((new - old).abs().max())
-    print(f"{name}: kernel {ms:.4f} ms beside the parent design's "
+    print(f"{name}: kernel {ms:.4f} ms beside the parent's "
           f"{out['parent_ms']:.4f} ms ({ms / out['parent_ms']:.3f} of it); "
           f"{out['launches_per_call']} launches a call, the parent "
           f"{out['parent_launches_per_call']}; equal to the parent's to the "
@@ -654,9 +652,8 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     spread["bound_ms"], spread["bound_by"] = bound(
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 4 * 9 + 4 * n_grid)
-    spread.update(spread_against_parent(
-        spread_name, "pme_spread", kernel,
-        parent and (lambda: parent_spread(parent, *spread_args)), reps))
+    spread.update(against_parent(spread_name, "pme_spread", kernel, None,
+                                 reps))
 
     spread64_args = (slot_pos, weight, st["slot_sub"],
                      recip_box_vectors(box.double()), grid_shape, nsub)
@@ -681,10 +678,8 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     spread64["bound_ms"], spread64["bound_by"] = bound(
         n_charged * SPREAD_OPS + n_grid * GRID_POINT_OPS,
         4 * g * C * 5 + 8 * 9 + 8 * n_grid, PEAK_FP64_FLOPS)
-    spread64.update(spread_against_parent(
-        spread64_name, "pme_spread_energies", kernel64,
-        parent and (lambda: parent_spread(parent, *spread64_args,
-                                          double=True)), reps))
+    spread64.update(against_parent(spread64_name, "pme_spread_energies",
+                                   kernel64, None, reps))
 
     if dispersion:
         eterm = pme_mod.dispersion_eterm_np(grid_shape, cfg["dpme_moduli"],
@@ -698,7 +693,11 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
         torch.einsum("st,txyk->sxyk", lam_nn.to(spec.dtype), spec * eterm),
         s=tuple(grid_shape), dim=(1, 2, 3), norm="forward").contiguous()
     interp_args = (phi, slot_pos, weight, st["slot_sub"], recip)
-    f_k = cuda_pme.pme_interp(*interp_args, **kw)
+
+    def interp_kernel():
+        return cuda_pme.pme_interp(*interp_args, **kw)
+
+    f_k = interp_kernel()
     f_p = cuda_pme.pme_interp_plain(*interp_args)
     torch.cuda.synchronize()
     err = float((f_k - f_p).abs().max())
@@ -706,7 +705,9 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     check(err <= TOL_FORCE * (fmax + 1.0),
           f"{interp_name}: forces max|dF| {err:.3e} <= {TOL_FORCE} * "
           f"(max|F| {fmax:.1f} + 1)")
-    ms, plain_ms = timed_pair(lambda: cuda_pme.pme_interp(*interp_args, **kw),
+    check(torch.equal(f_k, interp_kernel()),
+          f"{interp_name}: bitwise repeatable (fixed-order sums)")
+    ms, plain_ms = timed_pair(interp_kernel,
                               lambda: cuda_pme.pme_interp_plain(*interp_args),
                               reps)
     print(f"{interp_name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -714,6 +715,9 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     interp["bound_ms"], interp["bound_by"] = bound(
         n_charged * INTERP_OPS,
         4 * n_grid + 4 * g * C * 5 + 4 * 9 + 4 * g * 3 * C)
+    interp.update(against_parent(
+        interp_name, "pme_interp", interp_kernel,
+        parent and (lambda: parent_interp(parent, *interp_args)), reps))
     return {spread_name: spread, spread64_name: spread64, interp_name: interp}
 
 
@@ -799,16 +803,16 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
            lambda: cuda_pme.pme_spread_windows(*spread_args),
            lambda: cuda_pme.pme_spread_windows_plain(*spread_args),
            n_charged * SPREAD_OPS, slot_bytes + 4 * n_window)
-    out["pme_spread_windows" + suffix].update(spread_against_parent(
+    out["pme_spread_windows" + suffix].update(against_parent(
         "pme_spread_windows" + suffix, "pme_spread_windows",
-        lambda: cuda_pme.pme_spread_windows(*spread_args),
-        parent and (lambda: parent_spread_windows(parent, *spread_args)),
-        reps))
+        lambda: cuda_pme.pme_spread_windows(*spread_args), None, reps))
 
     shifted = cuda_pme.pme_fold(W_k)
     check(torch.equal(shifted, cuda_pme.pme_fold_plain(W_k)),
           f"pme_fold{suffix}: grid {tuple(shifted.shape)} equal to the plain "
           f"twin's to the bit")
+    check(torch.equal(shifted, cuda_pme.pme_fold(W_k)),
+          f"pme_fold{suffix}: bitwise repeatable")
     # the one-call library versions, timed here and used nowhere in the
     # port: fold is one index_add_ of the window elements at their grid
     # points (float atomics, so not to the bit), extract one take
@@ -826,6 +830,13 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
            lambda: cuda_pme.pme_fold_plain(W_k),
            (n_window - n_grid) * FOLD_OPS, 4 * n_window + 4 * n_grid,
            library_fold)
+    fold = out["pme_fold" + suffix]
+    fold.update(against_parent(
+        "pme_fold" + suffix, "pme_fold", lambda: cuda_pme.pme_fold(W_k),
+        parent and (lambda: parent_fold(parent, W_k)), reps))
+    if parent is not None:
+        check(fold["equals_parent"], f"pme_fold{suffix}: grid equal to the "
+              f"parent's to the bit")
 
     eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
         grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),

@@ -361,8 +361,9 @@ def pme_spread(slot_pos, slot_q, slot_sub, recip, grid_shape, nsub,
 
 def pme_interp(phi, slot_pos, slot_q, slot_sub, recip, dispersion=False):
     """Slot forces (n_cells, 3, C).  CPU tensors take the plain twin; CUDA
-    tensors launch the kernel.  ``dispersion`` counts the launch as the
-    LJPME pass's."""
+    tensors launch the kernel (two threads an atom, splitting its 25 stencil
+    lines, a fixed-order reduction: bitwise repeatable).  ``dispersion`` counts the
+    launch as the LJPME pass's."""
     dev = slot_pos.device
     if dev.type == "cpu":
         return pme_interp_plain(phi, slot_pos, slot_q, slot_sub, recip)
@@ -374,6 +375,10 @@ def pme_interp(phi, slot_pos, slot_q, slot_sub, recip, dispersion=False):
     if phi.dim() != 4:
         raise ValueError(f"phi must be (nsub, nx, ny, nz), got {phi.shape}")
     nx, ny, nz = phi.shape[1:]
+    if min(nx, ny, nz) < PME_ORDER or nx * ny * nz >= 2**31:
+        raise ValueError(f"pme_interp: the CUDA kernel takes grids of at "
+                         f"least 5 points an axis and fewer than 2^31 in "
+                         f"all, got {(nx, ny, nz)}")
     forces = torch.empty((g, 3, C), dtype=torch.float32, device=dev)
     LIBRARY.call("nbs_pme_interp", phi.data_ptr(), slot_pos.data_ptr(),
                  slot_q.data_ptr(), slot_sub.data_ptr(), recip.data_ptr(),
@@ -422,8 +427,9 @@ def pme_fold(W, dispersion=False):
     """+1-shifted charge grids (nsub, nx, ny, nz) from windows
     (bx, by, bz, nsub, wx, wy, wz); the true grids are ``roll(., -1)`` on
     each axis.  Raises ValueError unless w <= 2p.  CPU tensors take the plain
-    twin; CUDA tensors launch the kernel, whose sums equal the twin's to the
-    bit.  ``dispersion`` counts the launch as the LJPME pass's."""
+    twin; CUDA tensors launch the kernel (a warp an output line, its window
+    rows staged whole), whose sums equal the twin's to the bit.
+    ``dispersion`` counts the launch as the LJPME pass's."""
     dev = W.device
     if dev.type == "cpu":
         return pme_fold_plain(W)

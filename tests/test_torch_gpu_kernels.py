@@ -20,7 +20,8 @@ from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
 
 from torch_pair_cases import (PAIR_CASES, half_box_arrays,
                               pair_case_arrays, pair_case_slots)
-from torch_spread_cases import (SPREAD_CASES, spread_case_slots,
+from torch_spread_cases import (FOLD_LAYOUTS, SPREAD_CASES, fold_windows,
+                                potential_grids, spread_case_slots,
                                 window_bricks)
 
 pytestmark = pytest.mark.gpu
@@ -414,6 +415,75 @@ def test_spread_is_one_launch_without_an_accumulator(cuda):
                    if ev.device_type == torch.autograd.DeviceType.CUDA]
         assert len(kernels) == 1 and "spread_owner_kernel" in kernels[0], (
             kernels)
+
+
+@pytest.mark.parametrize("case", sorted(SPREAD_CASES))
+def test_interp_kernel_hard_shapes_match_plain(cuda, case):
+    """B3 at the spread cases' shapes (drift across every face and the box
+    face, triclinic, grids of 28 points, brick-major slots): charges and
+    C6-like weights (0.05 |q|) on random potential grids against the twin
+    within 2e-5 of (max|F| + 1), two launches equal to the bit."""
+    s = _spread_case_on_card(case, cuda)
+    phi = potential_grids(s).float().to(cuda)
+    recip = recip_box_vectors(s["box"].float())
+    for weight in (s["q"], 0.05 * s["q"].abs()):
+        args = (phi, s["pos"], weight, s["sub"], recip)
+        f_k = cuda_pme.pme_interp(*args)
+        f_p = cuda_pme.pme_interp_plain(*args)
+        again = cuda_pme.pme_interp(*args)
+        torch.cuda.synchronize()
+        assert float(f_p.abs().max()) > 0.0
+        assert float((f_k - f_p).abs().max()) <= 2e-5 * (
+            float(f_p.abs().max()) + 1.0)
+        assert torch.equal(f_k, again)
+
+
+@pytest.mark.parametrize("layout", sorted(FOLD_LAYOUTS))
+def test_fold_kernel_layouts_equal_plain(cuda, layout):
+    """The fold at layouts whose p differs per axis and reaches w = 2p, one
+    brick along z, nsub 1 to 3: the twin's grid to the bit, twice."""
+    W = fold_windows(layout).to(cuda)
+    grid = cuda_pme.pme_fold(W)
+    assert torch.equal(grid, cuda_pme.pme_fold_plain(W))
+    assert torch.equal(grid, cuda_pme.pme_fold(W))
+
+
+def _one_launch(fn, name, kernel_name):
+    """One call of ``fn``: one launch counted under ``name``, one kernel on
+    the card (``kernel_name`` in its name) and one allocation, the
+    output's."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                       # the build
+    torch.cuda.synchronize()
+    before = dict(cuda_pme.LAUNCHES)
+    stats = torch.cuda.memory_stats()
+    out = fn()
+    after = torch.cuda.memory_stats()
+    assert {k: cuda_pme.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == name) for k in before}
+    assert (after["allocation.all.allocated"]
+            - stats["allocation.all.allocated"]) == 1
+    assert (after["allocated_bytes.all.allocated"]
+            - stats["allocated_bytes.all.allocated"]) < (
+        out.numel() * out.element_size() + 1024)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and kernel_name in kernels[0], kernels
+
+
+def test_interp_and_fold_are_one_launch(cuda):
+    s = _spread_case_on_card("cubic", cuda)
+    phi = potential_grids(s).float().to(cuda)
+    args = (phi, s["pos"], s["q"], s["sub"],
+            recip_box_vectors(s["box"].float()))
+    _one_launch(lambda: cuda_pme.pme_interp(*args), "pme_interp",
+                "interp_kernel")
+    W = fold_windows("uneven").to(cuda)
+    _one_launch(lambda: cuda_pme.pme_fold(W), "pme_fold", "fold_kernel")
 
 
 @pytest.mark.parametrize("method", ["PME", "LJPME"])

@@ -1,10 +1,12 @@
-"""Shapes for the owner-computes spread kernel (``csrc/pme_spread.cu``),
-shared by the CPU tests of its decomposition
-(tests/test_torch_spread_owner.py) and the tests of the CUDA kernel on the
-card (tests/test_torch_gpu_kernels.py).  A case is made from a seed with
-numpy as float64 slot tensors on the CPU, grouped on a lattice of cells or
-bricks as ``ops/fused.py`` groups them.  This module imports torch and the
-port only.
+"""Shapes for the owner-computes spread kernel (``csrc/pme_spread.cu``)
+and the whole-grid interpolation (``csrc/pme_interp.cu``), and window
+layouts for the fold (``csrc/pme_fold.cu``), shared by the CPU tests of
+their decompositions (tests/test_torch_spread_owner.py,
+tests/test_torch_interp_fold_design.py) and the tests of the CUDA kernels
+on the card (tests/test_torch_gpu_kernels.py).  A case is made from a seed
+with numpy as float64 slot tensors on the CPU, grouped on a lattice of
+cells or bricks as ``ops/fused.py`` groups them.  This module imports torch
+and the port only.
 """
 
 import numpy as np
@@ -103,3 +105,29 @@ def spread_case_slots(case, seed=21, bricks=None):
     return dict(pos=slot_pos.contiguous(), q=slot_q[:, 0].contiguous(),
                 sub=slot_sub[:, 0].contiguous(), recip=recip, box=box_v,
                 grid=grid, nsub=nsub, lattice=lattice, skin=skin)
+
+
+# (bricks, grid, nsub) of the fold: p differs per axis, w = p + 6 reaches 2p
+# (p = 6) on some axes, one brick along z (its pieces come from itself)
+FOLD_LAYOUTS = {
+    "w2p_x": ((2, 3, 2), (12, 24, 18), 1),      # p = (6, 8, 9)
+    "w2p_all": ((3, 2, 2), (18, 12, 12), 2),    # p = 6 on every axis
+    "uneven": ((2, 3, 2), (16, 21, 14), 3),     # p = (8, 7, 7)
+    "one_brick_z": ((2, 2, 1), (14, 12, 7), 2),  # p = (7, 6, 7)
+}
+
+
+def fold_windows(layout, seed=5):
+    """Random float32 windows (bx, by, bz, nsub, wx, wy, wz) of a layout."""
+    bricks, grid, nsub = FOLD_LAYOUTS[layout]
+    w = tuple(w for _, w in tbricks.brick_window(grid, bricks))
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.normal(size=bricks + (nsub,) + w).astype(np.float32))
+
+
+def potential_grids(s, seed=4):
+    """Random float64 potential grids (nsub, nx, ny, nz) for a spread case's
+    slot tensors ``s``."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=(s["nsub"],) + tuple(s["grid"])))

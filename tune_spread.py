@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time variants of the two PME spread kernels on one NVIDIA GPU.
+"""Time variants of the whole-grid PME kernels and the fold on one NVIDIA
+GPU.
 
     python3 tune_spread.py variants.json
 
@@ -21,12 +22,14 @@ edits applied (every ``old`` text must occur), built there by its own
 ``runtime/kernels.py`` and timed in its own process at the shapes of
 chip_smoke.py's benchmark box (23,289 atoms, cells and bricks 6^3): the
 float spread of the charges on the 60^3 PME grid, its double variant, the
-float spread of LJPME's C6 weights on the 30^3 dispersion grid, and the
-window spread of the charges, each by chip_smoke.cuda_ms (30 launches
-queued behind other device work, twice).  When build/parent_csrc/ holds
-the parent's spread kernels (see chip_smoke.py), each process times them
-too, in the same turns.  Prints, per variant, what ptxas reports for the
-spread kernels and one line ``TIMES <name> {...}`` in ms, after the card's
+float spread of LJPME's C6 weights on the 30^3 dispersion grid, the window
+spread of the charges, the interpolation of the charges' forces from 60^3
+potential grids and of the C6 weights' from 30^3 ones, and the fold of the
+charges' windows, each by chip_smoke.cuda_ms (30 launches queued behind
+other device work, twice).  When build/parent_csrc/ holds the parent's
+pme_interp.cu and pme_fold.cu (see chip_smoke.py), each process times
+them too, in the same turns.  Prints, per variant, what ptxas reports for
+these kernels and one line ``TIMES <name> {...}`` in ms, after the card's
 name and power limit.  Nothing here checks results (a variant that leaves
 a piece out shows what the rest costs): that is chip_smoke.py's and the
 ``gpu`` tests' part.  The repository's sources are not touched.
@@ -57,6 +60,7 @@ def time_variant(variant_dir, probe):
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
     from nonbondedslicing_tpu_torch.ops import neighbors, plan as plan_mod
+    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
     from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
     from nonbondedslicing_tpu_torch.runtime.fastpath import DEFAULT_SKIN
     from nonbondedslicing_tpu_torch.runtime.kernels import LIBRARY
@@ -68,10 +72,9 @@ def time_variant(variant_dir, probe):
     keep = False
     for line in LIBRARY.build_log.splitlines():
         if "Compiling entry" in line:
-            keep = "spread" in line
+            keep = any(k in line for k in ("spread", "interp", "fold"))
             if keep:
-                print("ptxas:", "windows" if "windows" in line else
-                      "double" if "IdE" in line else "float")
+                print("ptxas:", line.split("'")[1] if "'" in line else line)
         elif keep and ("registers" in line or "spill" in line):
             print("ptxas:", line.strip())
 
@@ -108,10 +111,21 @@ def time_variant(variant_dir, probe):
                   radius=cuda_pme.spread_radius(grid, counts, cfg["skin"],
                                                 plan.box0))
         calls[name] = (lambda a=args, k=kw: cuda_pme.pme_spread(*a, **k))
-        if parent is not None:
-            calls[name + " parent"] = (
-                lambda a=args, d=double: chip_smoke.parent_spread(
-                    parent, *a, double=d))
+        if not double:   # the potential grids of this grid's interpolation
+            eterm = (pme_mod.dispersion_eterm_np(
+                grid, cfg["dpme_moduli"], plan.box0, plan.dispersion_alpha)
+                if weight == "slot_c6" else pme_mod.coulomb_eterm_np(
+                    grid, cfg["pme_moduli"], plan.box0, plan.ewald_alpha))
+            eterm = torch.as_tensor(eterm, device=dev).to(f32)
+            phi = torch.fft.irfftn(
+                torch.fft.rfftn(calls[name](), dim=(1, 2, 3)) * eterm,
+                s=tuple(grid), dim=(1, 2, 3), norm="forward").contiguous()
+            i_args = (phi,) + args[:4]
+            i_name = name.replace("spread", "interp")
+            calls[i_name] = (lambda a=i_args: cuda_pme.pme_interp(*a))
+            if parent is not None:
+                calls[i_name + " parent"] = (
+                    lambda a=i_args: chip_smoke.parent_interp(parent, *a))
 
     def to_bricks(x):
         return pme_bricks.cells_to_bricks(x, counts, bricks).contiguous()
@@ -122,9 +136,10 @@ def time_variant(variant_dir, probe):
     w_args = tuple(a.contiguous() if torch.is_tensor(a) else a
                    for a in w_args)
     calls["pme_spread_windows"] = lambda: cuda_pme.pme_spread_windows(*w_args)
+    W = calls["pme_spread_windows"]()
+    calls["pme_fold"] = lambda: cuda_pme.pme_fold(W)
     if parent is not None:
-        calls["pme_spread_windows parent"] = (
-            lambda: chip_smoke.parent_spread_windows(parent, *w_args))
+        calls["pme_fold parent"] = lambda: chip_smoke.parent_fold(parent, W)
     times = {}
     for _ in range(2):
         for name, fn in calls.items():

@@ -80,19 +80,23 @@ The whole-grid interpolation (csrc/pme_interp.cu) gives each atom two
 threads in two warps, splitting its 25 stencil lines 13 and 12, reads each
 line's 5 z points as aligned float4 (float2) chunks and adds the two shares
 in a fixed order; the fold (csrc/pme_fold.cu) gives a warp one output
-line and stages that line's window rows whole.  Each spread, interpolation
-and fold entry counts the kernels one call puts on the card
+line and stages that line's window rows whole; extract (csrc/pme_extract.cu)
+gives a block one window and a thread 16-byte chunks of its rows; the
+window interpolation (csrc/pme_interp_windows.cu) is B3's design with the
+window's edges in place of the wrap.  Each PME
+kernel entry counts the kernels one call puts on the card
 (launches_per_call, from a profiler trace of ten calls of each kernel and
 variant at its first entry); the spreads give the whole-grid spread's
-neighbour radius per axis (radius), and every whole-grid interpolation
-entry checks that two launches give the same forces to the bit.  When build/parent_csrc/ (or
-$NBS_PARENT_CSRC) holds an earlier version's pme_interp.cu and pme_fold.cu
-with the same C entry points (``git show
-<rev>:nonbondedslicing_tpu_torch/csrc/<file>``), they are built beside the
-kernels and every pme_interp and pme_fold entry also gets that version's
-time from this run, in turns parent, kernel, kernel, parent (parent_ms),
-its launches per call, and how far its output is from the kernel's
-(equals_parent, parent_max_abs_diff); the fold must equal it to the bit.
+neighbour radius per axis (radius), and every interpolation entry, whole
+grid or windows, checks that two launches give the same forces to the
+bit.  When build/parent_csrc/ (or $NBS_PARENT_CSRC) holds an earlier
+version's pme_extract.cu and pme_interp_windows.cu with the same C entry
+points (``git show <rev>:nonbondedslicing_tpu_torch/csrc/<file>``), they
+are built beside the kernels and every pme_extract and pme_interp_windows
+entry also gets that version's time from this run, in turns parent,
+kernel, kernel, parent (parent_ms), its launches per call, and how far its
+output is from the kernel's (equals_parent, parent_max_abs_diff); extract
+must equal it to the bit.
 
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
@@ -124,11 +128,11 @@ from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
-# an earlier version's interpolation and fold kernels to time beside the
-# current ones
+# an earlier version's extract and window interpolation kernels to time
+# beside the current ones
 PARENT_DIR = os.environ.get("NBS_PARENT_CSRC",
                             os.path.join(ROOT, "build", "parent_csrc"))
-PARENT_SOURCES = ("pme_interp.cu", "pme_fold.cu")
+PARENT_SOURCES = ("pme_extract.cu", "pme_interp_windows.cu")
 
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
@@ -394,40 +398,43 @@ def load_parent(procs):
     check(proc.returncode == 0, "parent: linked " + path + proc.stderr)
     lib = ctypes.CDLL(path)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.nbs_pme_interp.argtypes = [P] * 6 + [I] * 5 + [P]
-    lib.nbs_pme_fold.argtypes = [P] * 2 + [I] * 7 + [P]
+    lib.nbs_pme_extract.argtypes = [P] * 2 + [I] * 7 + [P]
+    lib.nbs_pme_interp_windows.argtypes = [P] * 6 + [I] * 8 + [P]
     print(f"parent: the kernels of {PARENT_DIR} built")
     return lib
 
 
-def parent_interp(lib, phi, slot_pos, weight, slot_sub, recip):
-    """The parent's whole-grid interpolation, called as its wrapper calls
-    it."""
+def parent_extract(lib, grid, bricks):
+    """The parent's extract, called as its wrapper calls it."""
+    import torch
+    nsub, grid_shape = grid.shape[0], tuple(grid.shape[1:])
+    p = tuple(n // b for n, b in zip(grid_shape, bricks))
+    W = torch.empty(tuple(bricks) + (nsub,) + tuple(pa + 6 for pa in p),
+                    dtype=torch.float32, device=grid.device)
+    err = lib.nbs_pme_extract(grid.data_ptr(), W.data_ptr(), nsub, *bricks,
+                              *p,
+                              torch.cuda.current_stream(grid.device)
+                              .cuda_stream)
+    if err:
+        raise SmokeFailure(f"parent nbs_pme_extract: CUDA error {err}")
+    return W
+
+
+def parent_interp_windows(lib, W_phi, slot_pos, weight, slot_sub, recip):
+    """The parent's window interpolation, called as its wrapper calls it."""
     import torch
     dev = slot_pos.device
     g, _, C = slot_pos.shape
     forces = torch.empty((g, 3, C), dtype=torch.float32, device=dev)
-    err = lib.nbs_pme_interp(
-        phi.data_ptr(), slot_pos.data_ptr(), weight.data_ptr(),
-        slot_sub.data_ptr(), recip.data_ptr(), forces.data_ptr(), g, C,
-        *phi.shape[1:], torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.nbs_pme_interp_windows(
+        W_phi.data_ptr(), slot_pos.data_ptr(), weight.data_ptr(),
+        slot_sub.data_ptr(), recip.data_ptr(), forces.data_ptr(), C,
+        W_phi.shape[3], *W_phi.shape[:3],
+        *(w - 6 for w in W_phi.shape[4:]),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise SmokeFailure(f"parent nbs_pme_interp: CUDA error {err}")
+        raise SmokeFailure(f"parent nbs_pme_interp_windows: CUDA error {err}")
     return forces
-
-
-def parent_fold(lib, W):
-    """The parent's fold, called as its wrapper calls it."""
-    import torch
-    bricks, nsub, w = tuple(W.shape[:3]), W.shape[3], tuple(W.shape[4:])
-    p = tuple(wa - 6 for wa in w)
-    grid = torch.empty((nsub,) + tuple(b * pa for b, pa in zip(bricks, p)),
-                       dtype=torch.float32, device=W.device)
-    err = lib.nbs_pme_fold(W.data_ptr(), grid.data_ptr(), nsub, *bricks, *p,
-                           torch.cuda.current_stream(W.device).cuda_stream)
-    if err:
-        raise SmokeFailure(f"parent nbs_pme_fold: CUDA error {err}")
-    return grid
 
 
 _OPS_PER_CALL = {}
@@ -602,16 +609,15 @@ def cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np):
 
 
 def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
-                      dispersion=False, parent=None):
+                      dispersion=False):
     """The spread kernel, its double variant (energy evaluations) and the
     interpolation kernel against their plain twins on one path's slot
     tensors: the grid within TOL_GRID of its max and bitwise repeatable, the
     double grid within TOL_GRID64, the forces within TOL_FORCE; CUDA-event
-    times and the bound of each, and for the spreads their launches per
-    call, neighbour radius and (``parent``: the parent's library) the
-    parent design's time.  ``names`` are the three entries' names.  With
-    ``dispersion``, LJPME's pass: C6 weights on the dispersion grid with its
-    convolution kernel (``lam_nn`` the vdW lambdas).  Returns their
+    times and the bound of each, and their launches per call (the spreads'
+    with their neighbour radius).  ``names`` are the three entries' names.
+    With ``dispersion``, LJPME's pass: C6 weights on the dispersion grid
+    with its convolution kernel (``lam_nn`` the vdW lambdas).  Returns their
     results."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_pme
@@ -715,9 +721,8 @@ def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
     interp["bound_ms"], interp["bound_by"] = bound(
         n_charged * INTERP_OPS,
         4 * n_grid + 4 * g * C * 5 + 4 * 9 + 4 * g * 3 * C)
-    interp.update(against_parent(
-        interp_name, "pme_interp", interp_kernel,
-        parent and (lambda: parent_interp(parent, *interp_args)), reps))
+    interp.update(against_parent(interp_name, "pme_interp", interp_kernel,
+                                 None, reps))
     return {spread_name: spread, spread64_name: spread64, interp_name: interp}
 
 
@@ -751,9 +756,12 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
     rolled back by one point, against the whole-grid spread (TOL_GRID of its
     max, each subset's charge to TOL_GRID_SUM: no point dropped), and the
     reciprocal forces of the two pipelines (TOL_FORCE), the window
-    pipeline's bitwise repeatable.  The window spread's entry also gets its
-    launches per call and (``parent``: the parent's library) the parent
-    design's time.  Returns the results by entry name."""
+    pipeline's bitwise repeatable.  The window spread's, the fold's,
+    extract's and the window interpolation's entries also get their launches
+    per call, the window interpolation's its bitwise repeatability, and
+    (``parent``: the parent's library) extract's and the window
+    interpolation's the parent design's time; extract must equal the
+    parent's windows to the bit.  Returns the results by entry name."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_pme, pme_bricks
     from nonbondedslicing_tpu_torch.ops import pme as pme_mod
@@ -830,13 +838,9 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
            lambda: cuda_pme.pme_fold_plain(W_k),
            (n_window - n_grid) * FOLD_OPS, 4 * n_window + 4 * n_grid,
            library_fold)
-    fold = out["pme_fold" + suffix]
-    fold.update(against_parent(
+    out["pme_fold" + suffix].update(against_parent(
         "pme_fold" + suffix, "pme_fold", lambda: cuda_pme.pme_fold(W_k),
-        parent and (lambda: parent_fold(parent, W_k)), reps))
-    if parent is not None:
-        check(fold["equals_parent"], f"pme_fold{suffix}: grid equal to the "
-              f"parent's to the bit")
+        None, reps))
 
     eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
         grid_shape, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
@@ -853,6 +857,14 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
     record("pme_extract", 0.0, lambda: cuda_pme.pme_extract(phi, bricks),
            lambda: cuda_pme.pme_extract_plain(phi, bricks), 0,
            4 * n_grid + 4 * n_window, lambda: torch.take(phi, w_index))
+    extract = out["pme_extract" + suffix]
+    extract.update(against_parent(
+        "pme_extract" + suffix, "pme_extract",
+        lambda: cuda_pme.pme_extract(phi, bricks),
+        parent and (lambda: parent_extract(parent, phi, bricks)), reps))
+    if parent is not None:
+        check(extract["equals_parent"], f"pme_extract{suffix}: windows equal "
+              f"to the parent's to the bit")
 
     interp_args = (W_phi, pos_b, q_b, sub_b, recip)
     f_k = cuda_pme.pme_interp_windows(*interp_args)
@@ -863,11 +875,18 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
     check(err <= TOL_FORCE * (fmax + 1.0),
           f"pme_interp_windows{suffix}: forces max|dF| {err:.3e} <= "
           f"{TOL_FORCE} * (max|F| {fmax:.1f} + 1)")
+    check(torch.equal(f_k, cuda_pme.pme_interp_windows(*interp_args)),
+          f"pme_interp_windows{suffix}: bitwise repeatable (fixed-order sums)")
     record("pme_interp_windows", err,
            lambda: cuda_pme.pme_interp_windows(*interp_args),
            lambda: cuda_pme.pme_interp_windows_plain(*interp_args),
            n_charged * INTERP_OPS,
            4 * n_window + slot_bytes + 4 * gb * 3 * Cb)
+    out["pme_interp_windows" + suffix].update(against_parent(
+        "pme_interp_windows" + suffix, "pme_interp_windows",
+        lambda: cuda_pme.pme_interp_windows(*interp_args),
+        parent and (lambda: parent_interp_windows(parent, *interp_args)),
+        reps))
 
     # the two designs against each other
     stencil_kw = dict(lattice=counts, radius=cuda_pme.spread_radius(
@@ -1054,7 +1073,7 @@ def main():
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "no JAX module is loaded")
 
-    # ---- 2. build (and, beside it, the parent's spread kernels)
+    # ---- 2. build (and, beside it, the parent's kernels)
     t0 = time.time()
     parent_procs = start_parent_build()
     LIBRARY.build()
@@ -1127,7 +1146,7 @@ def main():
 
     results.update(pme_kernel_checks(
         ("pme_spread", "pme_spread_energies", "pme_interp"), slot_pos, st,
-        box, cfg, plan, lam_c_nn, reps, parent=parent))
+        box, cfg, plan, lam_c_nn, reps))
 
     # ---- 4. whole evaluation: card f32 vs CPU f64 (plain twins)
     reference = evaluation_check("evaluation", plan, capacity, apply, st, pos,
@@ -1217,7 +1236,7 @@ def main():
     results.update(pme_kernel_checks(
         ("pme_spread_solute", "pme_spread_energies_solute",
          "pme_interp_solute"), s_slot_pos, s_st, box,
-        s_cfg, s_plan, s_lam_c_nn, reps, parent=parent))
+        s_cfg, s_plan, s_lam_c_nn, reps))
 
     s_reference = evaluation_check(
         "solute evaluation", s_plan, s_capacity, s_apply, s_st, s_pos, box,
@@ -1358,7 +1377,7 @@ def main():
             l_pc, energies, n_pair, 0, cell_kernel=False)
     results.update(pme_kernel_checks(DISPERSION_KERNELS, slot_pos, l_st, box,
                                      l_cfg, l_plan, lam_v_nn, reps,
-                                     dispersion=True, parent=parent))
+                                     dispersion=True))
     evaluation_check("ljpme evaluation", l_plan, capacity, l_apply, l_st,
                      pos, box, gvals, l_data, pos_np, box_np, np.ones(2))
 
@@ -1415,8 +1434,7 @@ def main():
             ls_pc, energies, s_n_pair, s_n_excl, cell_kernel=True)
     results.update(pme_kernel_checks(
         tuple(k + "_solute" for k in DISPERSION_KERNELS), s_slot_pos, ls_st,
-        box, ls_cfg, ls_plan, s_lam_v_nn, reps, dispersion=True,
-        parent=parent))
+        box, ls_cfg, ls_plan, s_lam_v_nn, reps, dispersion=True))
     reset_launches()
     evaluation_check("solute ljpme evaluation", ls_plan, s_capacity,
                      ls_apply, ls_st, s_pos, box, s_gvals, ls_data, s_pos_np,

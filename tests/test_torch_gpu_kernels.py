@@ -20,8 +20,10 @@ from nonbondedslicing_tpu_torch.ops.geometry import recip_box_vectors
 
 from torch_pair_cases import (PAIR_CASES, half_box_arrays,
                               pair_case_arrays, pair_case_slots)
-from torch_spread_cases import (FOLD_LAYOUTS, SPREAD_CASES, fold_windows,
-                                potential_grids, spread_case_slots,
+from torch_spread_cases import (EXTRACT_LAYOUTS, FOLD_LAYOUTS, SPREAD_CASES,
+                                WINDOW_INTERP_CASES, fold_windows,
+                                layout_grids, potential_grids,
+                                potential_windows, spread_case_slots,
                                 window_bricks)
 
 pytestmark = pytest.mark.gpu
@@ -484,6 +486,58 @@ def test_interp_and_fold_are_one_launch(cuda):
                 "interp_kernel")
     W = fold_windows("uneven").to(cuda)
     _one_launch(lambda: cuda_pme.pme_fold(W), "pme_fold", "fold_kernel")
+
+
+@pytest.mark.parametrize("layout", sorted(EXTRACT_LAYOUTS))
+def test_extract_kernel_layouts_equal_plain(cuda, layout):
+    """Extract at the fold's layouts (p differing per axis, w = 2p, one
+    brick along z, nsub 1 to 3) and one of rows of 14 points, so 16-, 8- and
+    4-byte stores: the twin's windows to the bit, twice, and from a grid one
+    float off 16 bytes too."""
+    bricks = EXTRACT_LAYOUTS[layout][0]
+    grid = layout_grids(layout).to(cuda)
+    W = cuda_pme.pme_extract(grid, bricks)
+    assert torch.equal(W, cuda_pme.pme_extract_plain(grid, bricks))
+    assert torch.equal(W, cuda_pme.pme_extract(grid, bricks))
+    odd = torch.empty(grid.numel() + 1, device=cuda)[1:].view(grid.shape)
+    odd.copy_(grid)
+    assert torch.equal(cuda_pme.pme_extract(odd, bricks), W)
+
+
+@pytest.mark.parametrize("case", WINDOW_INTERP_CASES)
+def test_interp_windows_kernel_widths_match_plain(cuda, case):
+    """The window interpolation at windows of 13, 14 and 16 points along z
+    (float, float2 and float4 chunks), atoms drifted so far that rows reach
+    past the window, and at brick-major spread cases (one brick along y and
+    z in one): charges and C6-like weights (0.05 |q|) against the twin
+    within 2e-5 of (max|F| + 1), two launches equal to the bit."""
+    bricks = window_bricks(case)
+    s = _spread_case_on_card(case, cuda, bricks=bricks)
+    W = potential_windows(s, bricks).float().to(cuda)
+    recip = recip_box_vectors(s["box"].float())
+    for weight in (s["q"], 0.05 * s["q"].abs()):
+        args = (W, s["pos"], weight, s["sub"], recip)
+        f_k = cuda_pme.pme_interp_windows(*args)
+        f_p = cuda_pme.pme_interp_windows_plain(*args)
+        again = cuda_pme.pme_interp_windows(*args)
+        torch.cuda.synchronize()
+        assert float(f_p.abs().max()) > 0.0
+        assert float((f_k - f_p).abs().max()) <= 2e-5 * (
+            float(f_p.abs().max()) + 1.0)
+        assert torch.equal(f_k, again)
+
+
+def test_extract_and_interp_windows_are_one_launch(cuda):
+    grid = layout_grids("w2p_all").to(cuda)
+    bricks = EXTRACT_LAYOUTS["w2p_all"][0]
+    _one_launch(lambda: cuda_pme.pme_extract(grid, bricks), "pme_extract",
+                "extract_kernel")
+    bricks = window_bricks("w16")
+    s = _spread_case_on_card("w16", cuda, bricks=bricks)
+    args = (potential_windows(s, bricks).float().to(cuda), s["pos"], s["q"],
+            s["sub"], recip_box_vectors(s["box"].float()))
+    _one_launch(lambda: cuda_pme.pme_interp_windows(*args),
+                "pme_interp_windows", "interp_windows_kernel")
 
 
 @pytest.mark.parametrize("method", ["PME", "LJPME"])

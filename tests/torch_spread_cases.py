@@ -3,8 +3,10 @@ and the whole-grid interpolation (``csrc/pme_interp.cu``), and window
 layouts for the fold (``csrc/pme_fold.cu``), shared by the CPU tests of
 their decompositions (tests/test_torch_spread_owner.py,
 tests/test_torch_interp_fold_design.py) and the tests of the CUDA kernels
-on the card (tests/test_torch_gpu_kernels.py).  A case is made from a seed
-with numpy as float64 slot tensors on the CPU, grouped on a lattice of
+on the card (tests/test_torch_gpu_kernels.py), and window widths for the
+window interpolation (``csrc/pme_interp_windows.cu``;
+tests/test_torch_extract_interp_windows_design.py).  A case is made from a
+seed with numpy as float64 slot tensors on the CPU, grouped on a lattice of
 cells or bricks as ``ops/fused.py`` groups them.  This module imports torch
 and the port only.
 """
@@ -35,10 +37,32 @@ SPREAD_CASES = {
 }
 
 
+# cases of the window interpolation (csrc/pme_interp_windows.cu), in the
+# format of SPREAD_CASES, their own bricks of w = 13, 14 and 16 points along
+# z (so every chunk width of the kernel: float, float2, float4), p differing
+# per axis; atoms drift 1.1 to 2.1 grid points (half the skin of 0.6 nm),
+# so some stencil rows reach past the window's width and some atoms leave
+# their brick's window on the low side
+WIDTH_CASES = {
+    "w13": (np.diag([4.2] * 3), (4, 6, 4), (2, 3, 4), (16, 27, 28), 2, 700,
+            20, 0.6, True),
+    "w14": (np.asarray(TRICLINIC), (6, 4, 4), (3, 2, 2), (21, 20, 16), 3,
+            700, 20, 0.6, True),
+    "w16": (np.diag([4.2] * 3), (4, 4, 6), (2, 4, 3), (18, 28, 30), 2, 700,
+            20, 0.6, True),
+}
+
+# the brick-major cases the window interpolation's tests run: the widths,
+# and spread cases on their window bricks (one brick along y and z in the
+# triclinic one)
+WINDOW_INTERP_CASES = tuple(sorted(WIDTH_CASES)) + ("bricks", "drift",
+                                                    "triclinic_drift")
+
+
 def window_bricks(case):
     """Bricks of the case's cells for the window spread: the case's own, or
     a coarser lattice with at least 6 grid points a brick (w <= 2p)."""
-    _, cells, bricks, grid, *_ = SPREAD_CASES[case]
+    _, cells, bricks, grid, *_ = (SPREAD_CASES | WIDTH_CASES)[case]
     if bricks is not None:
         return bricks
     out = tuple(2 if nc % 2 == 0 and n % 2 == 0 else 1
@@ -55,7 +79,7 @@ def spread_case_slots(case, seed=21, bricks=None):
     a face (each of the six in turn), and a few that start a hair inside
     a cell's face leave it, one of them across the box face."""
     (box_v, cells, case_bricks, grid, nsub, n, capacity, skin,
-     drift) = SPREAD_CASES[case]
+     drift) = (SPREAD_CASES | WIDTH_CASES)[case]
     rng = np.random.default_rng(seed)
     frac = rng.random((n, 3))
     if drift:
@@ -131,3 +155,24 @@ def potential_grids(s, seed=4):
     slot tensors ``s``."""
     rng = np.random.default_rng(seed)
     return torch.as_tensor(rng.normal(size=(s["nsub"],) + tuple(s["grid"])))
+
+
+# layouts of extract (csrc/pme_extract.cu): the fold's, whose rows of 12, 13
+# and 15 points take 16- and 4-byte stores, and one of 14 (8-byte stores)
+EXTRACT_LAYOUTS = dict(FOLD_LAYOUTS, rows_of_14=((3, 2, 2), (21, 20, 16), 3))
+
+
+def layout_grids(layout, seed=6):
+    """Random float32 potential grids (nsub, nx, ny, nz) of an extract
+    layout."""
+    bricks, grid, nsub = EXTRACT_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=(nsub,) + grid).astype(np.float32))
+
+
+def potential_windows(s, bricks, seed=4):
+    """Random float64 potential windows (bx, by, bz, nsub, wx, wy, wz) for a
+    case's brick-major slot tensors ``s``."""
+    w = tuple(w for _, w in tbricks.brick_window(s["grid"], bricks))
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=tuple(bricks) + (s["nsub"],) + w))

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the whole-grid PME kernels and the fold on one NVIDIA
-GPU.
+"""Time variants of the PME kernels on one NVIDIA GPU.
 
     python3 tune_spread.py variants.json
 
@@ -24,13 +23,15 @@ chip_smoke.py's benchmark box (23,289 atoms, cells and bricks 6^3): the
 float spread of the charges on the 60^3 PME grid, its double variant, the
 float spread of LJPME's C6 weights on the 30^3 dispersion grid, the window
 spread of the charges, the interpolation of the charges' forces from 60^3
-potential grids and of the C6 weights' from 30^3 ones, and the fold of the
-charges' windows, each by chip_smoke.cuda_ms (30 launches queued behind
+potential grids and of the C6 weights' from 30^3 ones, the fold of the
+charges' windows, the extract of the windows of the potential grids made
+from that fold, and the window interpolation of the charges' forces from
+those windows, each by chip_smoke.cuda_ms (30 launches queued behind
 other device work, twice).  When build/parent_csrc/ holds the parent's
-pme_interp.cu and pme_fold.cu (see chip_smoke.py), each process times
-them too, in the same turns.  Prints, per variant, what ptxas reports for
-these kernels and one line ``TIMES <name> {...}`` in ms, after the card's
-name and power limit.  Nothing here checks results (a variant that leaves
+pme_extract.cu and pme_interp_windows.cu (see chip_smoke.py), each
+process times them too, in the same turns.  Prints, per variant, what
+ptxas reports for these kernels and one line ``TIMES <name> {...}`` in ms,
+after the card's name and power limit.  Nothing here checks results (a variant that leaves
 a piece out shows what the rest costs): that is chip_smoke.py's and the
 ``gpu`` tests' part.  The repository's sources are not touched.
 """
@@ -72,7 +73,8 @@ def time_variant(variant_dir, probe):
     keep = False
     for line in LIBRARY.build_log.splitlines():
         if "Compiling entry" in line:
-            keep = any(k in line for k in ("spread", "interp", "fold"))
+            keep = any(k in line for k in ("spread", "interp", "fold",
+                                           "extract"))
             if keep:
                 print("ptxas:", line.split("'")[1] if "'" in line else line)
         elif keep and ("registers" in line or "spill" in line):
@@ -123,9 +125,6 @@ def time_variant(variant_dir, probe):
             i_args = (phi,) + args[:4]
             i_name = name.replace("spread", "interp")
             calls[i_name] = (lambda a=i_args: cuda_pme.pme_interp(*a))
-            if parent is not None:
-                calls[i_name + " parent"] = (
-                    lambda a=i_args: chip_smoke.parent_interp(parent, *a))
 
     def to_bricks(x):
         return pme_bricks.cells_to_bricks(x, counts, bricks).contiguous()
@@ -138,8 +137,21 @@ def time_variant(variant_dir, probe):
     calls["pme_spread_windows"] = lambda: cuda_pme.pme_spread_windows(*w_args)
     W = calls["pme_spread_windows"]()
     calls["pme_fold"] = lambda: cuda_pme.pme_fold(W)
+    grid = cfg["pme_grid"]
+    eterm = torch.as_tensor(pme_mod.coulomb_eterm_np(
+        grid, cfg["pme_moduli"], plan.box0, plan.ewald_alpha),
+        device=dev).to(f32)
+    phi = torch.fft.irfftn(
+        torch.fft.rfftn(calls["pme_fold"](), dim=(1, 2, 3)) * eterm,
+        s=tuple(grid), dim=(1, 2, 3), norm="forward").contiguous()
+    calls["pme_extract"] = lambda: cuda_pme.pme_extract(phi, bricks)
+    i_args = (calls["pme_extract"](),) + w_args[:4]
+    calls["pme_interp_windows"] = lambda: cuda_pme.pme_interp_windows(*i_args)
     if parent is not None:
-        calls["pme_fold parent"] = lambda: chip_smoke.parent_fold(parent, W)
+        calls["pme_extract parent"] = (
+            lambda: chip_smoke.parent_extract(parent, phi, bricks))
+        calls["pme_interp_windows parent"] = (
+            lambda: chip_smoke.parent_interp_windows(parent, *i_args))
     times = {}
     for _ in range(2):
         for name, fn in calls.items():

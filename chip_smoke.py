@@ -42,7 +42,11 @@ the last line:
 5. make_md_step from the benchmark state: one 200-step warm-up chunk, then
    five timed 200-step chunks (median and range of ms/step and ns/day);
    energy, guards, constraints, temperature and the launch count of each
-   kernel;
+   kernel.  make_md_step replays one CUDA graph per K-step window, so the
+   MD runs of phases 5-8 and 10 print, beside the kernels the card ran a
+   step, the host's launch calls of them a step (graph replays, and the
+   kernels launched outside a graph), and check that the force-only pair
+   kernel ran once a step and its energies variant once a run();
 6. the solute path: the system (atoms, waters removed, cells, capacity,
    emax), every excluded pair's span against one cell width, pair_cell and
    the three PME kernels against their plain twins at these shapes
@@ -69,7 +73,17 @@ the last line:
    solute box under LJPME: the LJPME variants of pair_cell and the
    dispersion pass's kernels at its shapes against their twins, and the
    evaluations with energies and force-only against CPU f64 (dE/dlambda_vdw
-   and dE/dlambda_elec included), counted; no MD chunks.
+   and dE/dlambda_elec included), counted; no MD chunks;
+9. the CUDA graph against the eager body (``run.eager``, the same window
+   without the graph): from the state of one captured window, two windows
+   of K steps each way, the same kernel launches counted; on the rigid box
+   positions and velocities equal to the bit and the energy within 1e-12
+   relative, on the solute box positions within 1e-5 nm; then 200-step
+   chunks of both timed in turns;
+10. mixed precision (float64 positions) on the benchmark box: one warm-up
+   chunk and three timed chunks with phase 5's checks; then the NVE pair,
+   single and mixed, each 20 chunks of 100 steps from the benchmark state,
+   the drift of PE + KE from a linear fit; mixed must drift less.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -139,6 +153,9 @@ TIMED_CHUNKS = 5
 SOLUTE_TIMED_CHUNKS = 3
 GRID_TIMED_CHUNKS = 3
 LJPME_TIMED_CHUNKS = 3
+MIXED_TIMED_CHUNKS = 3
+NVE_CHUNKS = 20           # the NVE pair: 20 chunks of 100 steps each
+NVE_STEPS = 100
 BACKLOG_MS = 1.0          # see cuda_ms
 
 # tolerances (kernel vs plain twin on the card; card f32 vs CPU f64)
@@ -151,6 +168,10 @@ TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
 TOL_EVAL_DERIV = 1e-5     # relative dE/dlambda
 TOL_CONSTRAINT = 1e-5     # nm
+TOL_GRAPH_SOLUTE = 1e-5   # nm, graph vs eager on the solute box (float
+                          # atomics in the bonds' and M-SHAKE's index_add)
+TOL_GRAPH_ENERGY = 1e-12  # relative, graph vs eager on the rigid box (the
+                          # exclusion rows' float64 index_add_ may reorder)
 
 # the bound: peaks of one H100 SXM (NVIDIA's data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12           # FP32 outside the tensor cores
@@ -972,40 +993,85 @@ def evaluation_check(label, plan, capacity, apply, state, pos, box, gvals,
     return E_c, f_c, d_c
 
 
-def run_md(make_run, capacity, p, v, box, gvals, data, n_timed, guard_exc):
-    """One warm-up chunk and ``n_timed`` timed chunks of CHUNK_STEPS steps,
-    with bench.py's retries: capacity + 8 after a cell overflow, K halved
-    after a skin violation (the chunk is then run again from its start).
-    ``make_run(capacity, reuse_steps)`` builds the MD step.  Returns (p, v,
-    energy, seconds per chunk, the step's config)."""
-    import torch
-    state = {"run": None, "capacity": capacity, "reuse": None}
+class Chunks:
+    """make_md_step's run() over chunks of steps, with bench.py's retries:
+    capacity + 8 after a cell overflow, K halved after a skin violation
+    (the chunk is then run again from its start).  ``make_run(capacity,
+    reuse_steps)`` builds the MD step.  Counts the steps and the run()
+    calls made, and keeps the graph statistics (``run.stats``) of every
+    run it built."""
 
-    def run_chunk(p, v):
+    def __init__(self, make_run, capacity, guard_exc):
+        self.make_run = make_run
+        self.capacity = capacity
+        self.guard_exc = guard_exc
+        self.reuse = None
+        self.run = None
+        self.steps = 0
+        self.calls = 0
+        self.retired = dict(replays=0, replayed_launches=0)
+
+    def __call__(self, p, v, box, gvals, data, steps):
         while True:
-            if state["run"] is None:
-                state["run"] = make_run(state["capacity"], state["reuse"])
-                state["reuse"] = state["run"].config["reuse_steps"]
+            if self.run is None:
+                self.run = self.make_run(self.capacity, self.reuse)
+                self.reuse = self.run.config["reuse_steps"]
+            self.steps += steps
+            self.calls += 1
             try:
-                return state["run"](p, v, box, gvals, data, CHUNK_STEPS)
-            except guard_exc as exc:
+                return self.run(p, v, box, gvals, data, steps)
+            except self.guard_exc as exc:
                 if "capacity overflow" in str(exc):
-                    state["capacity"] += 8
-                elif "skin violation" in str(exc) and state["reuse"] > 1:
-                    state["reuse"] = max(1, state["reuse"] // 2)
+                    self.capacity += 8
+                elif "skin violation" in str(exc) and self.reuse > 1:
+                    self.reuse = max(1, self.reuse // 2)
                 else:
                     raise
-                state["run"] = None
+                for key in self.retired:
+                    self.retired[key] += self.run.stats[key]
+                self.run = None
                 print(f"md: retry after guard: {exc}")
 
+    def graph_stats(self):
+        """(graph replays, kernel launches they added) over every run."""
+        return tuple(self.retired[key] + self.run.stats[key]
+                     for key in ("replays", "replayed_launches"))
+
+
+def run_md(chunks, p, v, box, gvals, data, n_timed):
+    """One warm-up chunk and ``n_timed`` timed chunks of CHUNK_STEPS steps
+    through ``chunks`` (a :class:`Chunks`).  Returns (p, v, energy, seconds
+    per chunk, the step's config)."""
+    import torch
     chunk_s = []
     for _ in range(1 + n_timed):
         torch.cuda.synchronize()
         t0 = time.time()
-        p, v, energy = run_chunk(p, v)
+        p, v, energy = chunks(p, v, box, gvals, data, CHUNK_STEPS)
         torch.cuda.synchronize()
         chunk_s.append(time.time() - t0)
-    return p, v, energy, chunk_s, state["run"].config
+    return p, v, energy, chunk_s, chunks.run.config
+
+
+def launch_report(label, chunks, launches, pair):
+    """The hand-written kernels' launches per step of an MD run: those the
+    card ran (the wrappers' counters, which a graph's replays add to) and
+    the host's launch calls of them (graph replays, and kernels launched
+    outside a graph: the warm-up windows and the final evaluations).  The
+    force-only ``pair`` kernel must have run once a step and its energies
+    variant once a run()."""
+    total = sum(launches.values())
+    replays, replayed = chunks.graph_stats()
+    eager = total - replayed
+    print(f"{label}: {total / chunks.steps:.3f} hand-written kernels a step "
+          f"on the card, {(replays + eager) / chunks.steps:.3f} host launch "
+          f"calls of them a step ({replays} graph replays, {eager} kernels "
+          f"launched outside a graph, {chunks.steps} steps)")
+    check(launches[pair] == chunks.steps
+          and launches[pair + "_energies"] == chunks.calls,
+          f"{label}: {pair} launched once a step ({launches[pair]} in "
+          f"{chunks.steps}), its energies variant once a run() "
+          f"({launches[pair + '_energies']} in {chunks.calls})")
 
 
 def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
@@ -1034,6 +1100,88 @@ def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
           f"{CHUNK_STEPS} steps (range {ms[0]:.3f}-{ms[-1]:.3f}), "
           f"{ns_day:.2f} ns/day at {DT_PS} ps ({n_atoms} atoms, {card})")
     return ms
+
+
+def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
+                        data, pos_tol, reset_launches, card):
+    """Two windows of K steps replayed from make_md_step's CUDA graph
+    against the same windows through its eager body (``run.eager``), from
+    the state one captured window reaches: positions and velocities equal
+    to the bit (``pos_tol`` 0) or within ``pos_tol`` nm, the energy within
+    1e-12 relative (TOL_GRAPH_ENERGY, or TOL_EVAL_ENERGY with a tolerance),
+    the same kernel launches counted; then CHUNK_STEPS-step chunks timed
+    in turns graph, eager, eager, graph."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    run = make_run(capacity, None)
+    K = run.config["reuse_steps"]
+    check(run.config["graph"], f"{label}: make_md_step graphs its windows")
+    p, v, _ = run(p0, v0, box, gvals, data, K)
+    check(run.stats["captures"] == 1 and run.stats["replays"] == 0,
+          f"{label}: the first window runs eagerly and is captured "
+          f"({run.stats})")
+    made = {}
+    out = {}
+    for name, fn in (("graph", run), ("eager", run.eager)):
+        reset_launches()
+        out[name] = fn(p, v, box, gvals, data, 2 * K)
+        torch.cuda.synchronize()
+        made[name] = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    check(run.stats["replays"] == 2,
+          f"{label}: two windows, two replays ({run.stats})")
+    check(made["graph"] == made["eager"],
+          f"{label}: the graph counts the kernels the eager body launches "
+          f"({sum(made['graph'].values())} in {2 * K} steps)")
+    (p_g, v_g, e_g), (p_e, v_e, e_e) = out["graph"], out["eager"]
+    dp = float((p_g - p_e).abs().max())
+    dv = float((v_g - v_e).abs().max())
+    rel_e = abs(float(e_g) - float(e_e)) / abs(float(e_e))
+    print(f"{label}: {2 * K} steps, graph against eager: max|dx| {dp:.3e} "
+          f"nm, max|dv| {dv:.3e} nm/ps, energy {float(e_g):.6f} against "
+          f"{float(e_e):.6f} kJ/mol")
+    if pos_tol == 0.0:
+        check(torch.equal(p_g, p_e) and torch.equal(v_g, v_e),
+              f"{label}: positions and velocities equal to the bit")
+        check(rel_e <= TOL_GRAPH_ENERGY,
+              f"{label}: relative energy difference {rel_e:.3e} <= "
+              f"{TOL_GRAPH_ENERGY}")
+    else:
+        check(dp <= pos_tol, f"{label}: positions within {dp:.3e} <= "
+              f"{pos_tol} nm")
+        check(rel_e <= TOL_EVAL_ENERGY,
+              f"{label}: relative energy difference {rel_e:.3e} <= "
+              f"{TOL_EVAL_ENERGY}")
+    ms = {"graph": [], "eager": []}
+    for name in ("graph", "eager", "eager", "graph"):
+        fn = run if name == "graph" else run.eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, v, _ = fn(p, v, box, gvals, data, CHUNK_STEPS)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / CHUNK_STEPS)
+    print(f"{label}: ms/step of {CHUNK_STEPS}-step chunks in turns: graph "
+          f"{[round(x, 3) for x in ms['graph']]}, eager "
+          f"{[round(x, 3) for x in ms['eager']]} ({card})")
+
+
+def nve_drift(label, chunks, p, v, box, gvals, data, masses, card):
+    """NVE_CHUNKS chunks of NVE_STEPS steps from the given state; the
+    drift of PE + KE in kJ/mol/ps, the slope of a linear fit over the
+    chunk ends (PE: each run()'s energy at its final positions; KE: the
+    leapfrog half-step velocities, as tests/test_torch_md.py takes it)."""
+    t, e = [], []
+    m = np.asarray(masses, dtype=np.float64)[:, None]
+    for i in range(NVE_CHUNKS):
+        p, v, pe = chunks(p, v, box, gvals, data, NVE_STEPS)
+        ke = 0.5 * float(np.sum(m * v.double().cpu().numpy() ** 2))
+        t.append((i + 1) * NVE_STEPS * DT_PS)
+        e.append(float(pe) + ke)
+    slope = float(np.polyfit(t, e, 1)[0])
+    check(all(math.isfinite(x) for x in e), f"nve {label}: energies finite")
+    print(f"nve {label}: {NVE_CHUNKS} x {NVE_STEPS} steps at {DT_PS} ps, "
+          f"PE + KE {e[0]:.1f} -> {e[-1]:.1f} kJ/mol, drift {slope:.2f} "
+          f"kJ/mol/ps (linear fit; {p.shape[0]} atoms, {card})")
+    return slope
 
 
 def main():
@@ -1159,15 +1307,18 @@ def main():
                             constraints=constraints)
 
     reset_launches()
+    chunks = Chunks(make_bench_run, capacity, nbt.OpenMMException)
     p, v, energy, chunk_s, config = run_md(
-        make_bench_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
-        TIMED_CHUNKS, nbt.OpenMMException)
+        TIMED_CHUNKS)
     launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
     print(f"md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, timed "
           f"chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
+    check(config["graph"], "md: the K-step windows run as CUDA graphs")
     check_launches("md", "rigid", launches)
+    launch_report("md", chunks, launches, "pair_column")
     ms_stencil = md_checks("md", p, v, energy, masses, 0,
                            3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
     run_launches = {"rigid": launches}
@@ -1256,15 +1407,18 @@ def main():
                             constraints=s_constraints, bonds=s_bonds)
 
     reset_launches()
+    chunks = Chunks(make_solute_run, s_capacity, nbt.OpenMMException)
     p, v, energy, chunk_s, config = run_md(
-        make_solute_run, s_capacity, s_pos,
-        torch.as_tensor(s_vel_np, device=dev).to(f32), box, s_gvals, s_data,
-        SOLUTE_TIMED_CHUNKS, nbt.OpenMMException)
+        chunks, s_pos, torch.as_tensor(s_vel_np, device=dev).to(f32), box,
+        s_gvals, s_data, SOLUTE_TIMED_CHUNKS)
     launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
     print(f"solute md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
+    check(config["graph"], "solute md: the K-step windows run as CUDA "
+          "graphs (the gather constrainer's clusters are 3 wide)")
     check_launches("solute md", "solute", launches)
+    launch_report("solute md", chunks, launches, "pair_cell")
     span = exclusion_span(p.double().cpu().numpy(), s_plan.exclusion_pairs,
                           box_len)
     check(span < width, f"solute md: excluded pairs span at most "
@@ -1295,15 +1449,17 @@ def main():
                             constraints=constraints, pme_pipeline="grid")
 
     reset_launches()
+    chunks = Chunks(make_grid_run, capacity, nbt.OpenMMException)
     p, v, energy, chunk_s, config = run_md(
-        make_grid_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
-        GRID_TIMED_CHUNKS, nbt.OpenMMException)
+        GRID_TIMED_CHUNKS)
     launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
     print(f"grid md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
     check_launches("grid md", "rigid_grid", launches)
+    launch_report("grid md", chunks, launches, "pair_column")
     # one pair kernel and one of each window kernel per evaluation, one
     # double spread per evaluation with energies
     n_eval = launches["pair_column"] + launches["pair_column_energies"]
@@ -1387,15 +1543,17 @@ def main():
                             constraints=constraints)
 
     reset_launches()
+    chunks = Chunks(make_ljpme_run, capacity, nbt.OpenMMException)
     p, v, energy, chunk_s, config = run_md(
-        make_ljpme_run, capacity, torch.as_tensor(pos_np, device=dev).to(f32),
+        chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, l_data,
-        LJPME_TIMED_CHUNKS, nbt.OpenMMException)
+        LJPME_TIMED_CHUNKS)
     launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
     print(f"ljpme md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
     check_launches("ljpme md", "rigid_ljpme", launches)
+    launch_report("ljpme md", chunks, launches, "pair_column_ljpme")
     check(all(launches[k + "_dispersion" + e] == launches[k + e]
               for k, e in (("pme_spread", ""), ("pme_spread", "_energies"),
                            ("pme_interp", ""))),
@@ -1443,6 +1601,55 @@ def main():
     print(f"solute ljpme evaluation: launches {launches}")
     check_launches("solute ljpme evaluation", "solute_ljpme", launches)
     run_launches["solute_ljpme"] = launches
+
+    # ---- 9. the CUDA graph against the eager body
+    graph_against_eager(
+        "graph", make_bench_run, capacity,
+        torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data, 0.0,
+        reset_launches, card)
+    graph_against_eager(
+        "solute graph", make_solute_run, s_capacity, s_pos,
+        torch.as_tensor(s_vel_np, device=dev).to(f32), box, s_gvals, s_data,
+        TOL_GRAPH_SOLUTE, reset_launches, card)
+
+    # ---- 10. mixed precision at full width, and the NVE pair
+    def make_mixed_run(cap, reuse, mixed=True):
+        return make_md_step(plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints, mixed_precision=mixed)
+
+    reset_launches()
+    chunks = Chunks(make_mixed_run, capacity, nbt.OpenMMException)
+    p, v, energy, chunk_s, config = run_md(
+        chunks, torch.as_tensor(pos_np, device=dev),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
+        MIXED_TIMED_CHUNKS)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"mixed md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
+          f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s")
+    check(config["mixed_precision"] and config["graph"]
+          and p.dtype == torch.float64 and v.dtype == f32,
+          f"mixed md: float64 positions ({p.dtype}), float32 velocities "
+          f"({v.dtype}), graphed")
+    check_launches("mixed md", "rigid", launches)
+    launch_report("mixed md", chunks, launches, "pair_column")
+    ms_mixed = md_checks("mixed md", p, v, energy, masses, 0,
+                         3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
+    print(f"mixed: {np.median(ms_mixed):.3f} ms/step against single's "
+          f"{np.median(ms_stencil):.3f} in this run ({n} atoms, {card})")
+    drift = {}
+    for precision in ("single", "mixed"):
+        drift[precision] = nve_drift(
+            precision, Chunks(lambda cap, reuse, m=precision == "mixed":
+                              make_mixed_run(cap, reuse, m), capacity,
+                              nbt.OpenMMException),
+            torch.as_tensor(pos_np, device=dev),
+            torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
+            masses, card)
+    check(abs(drift["mixed"]) < abs(drift["single"]),
+          f"nve: mixed drifts less than single ({drift['mixed']:.2f} "
+          f"against {drift['single']:.2f} kJ/mol/ps)")
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -13,6 +13,8 @@
 Slice energies accumulate in float64; forces stay in the working dtype.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -75,6 +77,18 @@ def triangle_exclusions(pairs, num_particles):
     return tri if np.array_equal(tri, expect) else None
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_atoms(device):
+    """The local atoms (0, 0, 1) and (1, 2, 2) of a molecule's pairs 0-1,
+    0-2, 1-2, as index tensors on ``device``, copied from the host once: a
+    host->device copy cannot be captured in a CUDA graph.  Callers take
+    them with ``index_select``: ``x[:, index]`` with a CUDA index, captured
+    in a CUDA graph, replayed results that depended on the state at capture
+    (torch 2.11, CUDA 12.8, H100)."""
+    return (torch.tensor((0, 0, 1), device=device),
+            torch.tensor((1, 2, 2), device=device))
+
+
 def exclusion_corrections_rows(positions, charge, sig_half, eps2,
                                pair_slices, lam_coul_s, lam_vdw_s, *, alpha,
                                ljpme, dispersion_alpha, num_slices):
@@ -92,16 +106,15 @@ def exclusion_corrections_rows(positions, charge, sig_half, eps2,
     m = n // 3
     p = positions.reshape(m, 3, 3)               # (M, atom, xyz)
     q = charge.reshape(m, 3)
-    li = (0, 0, 1)
-    lj = (1, 2, 2)
-    dr = p[:, li] - p[:, lj]                     # (M, 3 pairs, xyz)
+    li, lj = _pair_atoms(positions.device)
+    dr = p.index_select(1, li) - p.index_select(1, lj)  # (M, 3 pairs, xyz)
     r2 = torch.sum(dr * dr, dim=-1)
     r = torch.where(r2 > 0, torch.sqrt(torch.where(r2 > 0, r2, 1.0)), 0.0)
     ar = alpha * r
     erf_ar = torch.erf(ar)
     big = erf_ar > 1e-6
     rinv = 1.0 / torch.where(big, r, 1.0)
-    qq = q[:, li] * q[:, lj]
+    qq = q.index_select(1, li) * q.index_select(1, lj)
     e_c = torch.where(big, -ONE_4PI_EPS0 * qq * rinv * erf_ar,
                       -alpha * TWO_OVER_SQRT_PI * ONE_4PI_EPS0 * qq)
     dedr = torch.where(
@@ -110,8 +123,9 @@ def exclusion_corrections_rows(positions, charge, sig_half, eps2,
     f = -(lam_coul_s[pair_slices] * dedr)[..., None] * dr   # (M, 3, xyz)
     if ljpme:
         c6 = (8.0 * sig_half ** 3 * eps2).reshape(m, 3)
-        e_v, dedr_v = dispersion_terms(c6[:, li] * c6[:, lj], r, rinv,
-                                       dispersion_alpha)
+        e_v, dedr_v = dispersion_terms(
+            c6.index_select(1, li) * c6.index_select(1, lj), r, rinv,
+            dispersion_alpha)
         e_v = torch.where(big, e_v, 0.0)
         f = f + (lam_vdw_s[pair_slices] * torch.where(big, dedr_v, 0.0)
                  )[..., None] * dr

@@ -66,6 +66,8 @@ two large grids, which float spline weights blur by about as much as its
 dE/dlambda may err; there is no double window kernel.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -95,15 +97,22 @@ def _count(name, dispersion, double=False):
              + ("_energies" if double else "")] += 1
 
 
+@functools.lru_cache(maxsize=None)
+def _per_axis(values, device, dtype=torch.int64):
+    """A constant (3,) tensor of per-axis sizes on ``device``, copied from
+    the host once: a host->device copy cannot be captured in a CUDA graph."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _splines(slot_pos, recip, grid_shape, derivatives):
     """Per-slot grid base (M, 3) int64, theta and dtheta (M, 3, order)."""
     pos = slot_pos.transpose(1, 2).reshape(-1, 3)
     f = pos @ recip
-    n = torch.as_tensor(grid_shape, dtype=pos.dtype, device=pos.device)
+    n = _per_axis(tuple(grid_shape), pos.device, pos.dtype)
     t = (f - torch.floor(f)) * n
     ti = torch.floor(t)
     theta, dtheta = bsplines(t - ti, PME_ORDER)
-    base = ti.long() % torch.as_tensor(grid_shape, device=pos.device)
+    base = ti.long() % _per_axis(tuple(grid_shape), pos.device)
     return base, theta, (dtheta if derivatives else None)
 
 
@@ -223,8 +232,8 @@ def _window_index(base, slot_sub, grid_shape, bricks, nsub):
     lin = torch.arange(gb, device=dev).repeat_interleave(base.shape[0] // gb)
     coord = torch.stack([lin // (bricks[1] * bricks[2]),
                          (lin // bricks[2]) % bricks[1], lin % bricks[2]], 1)
-    p = torch.as_tensor((px, py, pz), device=dev)
-    n = torch.as_tensor(grid_shape, device=dev)
+    p = _per_axis((px, py, pz), dev)
+    n = _per_axis(tuple(grid_shape), dev)
     rel = (base - (coord * p - 1)) % n                   # (M, 3) in [0, n)
     k = torch.arange(PME_ORDER, device=dev)
     rows, inside = [], []

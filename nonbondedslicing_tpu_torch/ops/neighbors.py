@@ -78,6 +78,8 @@ def build_occupancy(cell, n, counts, capacity):
                        torch.full_like(rank, n_cells * capacity))
     table = torch.full((n_cells * capacity + 1,), n, dtype=torch.int32,
                        device=cell.device)
-    table[dest[fits]] = order[fits].to(torch.int32)
+    # atoms that do not fit all write the sink entry, which is dropped: no
+    # boolean mask, so no host sync (the table is built inside CUDA graphs)
+    table[dest] = order.to(torch.int32)
     overflow = torch.sum(~fits)
     return table[:-1].reshape(n_cells, capacity), overflow

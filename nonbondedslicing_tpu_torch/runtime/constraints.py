@@ -128,6 +128,9 @@ class SettleConstrainer:
     as float64 host arrays and moved to the positions' device and dtype on
     first use."""
 
+    # no host sync: the MD step captures it in its CUDA graphs
+    capturable = True
+
     def __init__(self, dists, masses):
         d = np.asarray(dists, dtype=np.float64).reshape(-1, 3)
         m3 = np.asarray(masses, dtype=np.float64).reshape(-1, 3)
@@ -258,6 +261,9 @@ class GatherConstrainer:
     def __init__(self, pairs, dists, masses, mask=None):
         m, width = pairs.shape[0], pairs.shape[1]
         self.width = width
+        # torch.linalg.pinv, for wider clusters, copies from the host, which
+        # a CUDA graph cannot capture: the MD step runs such systems eagerly
+        self.capturable = width == 3
         i_idx = pairs[..., 0].astype(np.int64)
         j_idx = pairs[..., 1].astype(np.int64)
         masses = np.asarray(masses, dtype=np.float64)

@@ -3,10 +3,14 @@
 Leapfrog-Verlet steps with the full sliced nonbonded evaluation, over the
 fused engine (``ops/fused.py``).  The neighbour/slot state from ``prepare``
 is rebuilt every ``reuse_steps`` (K) steps and reused by the steps between
-under a skin guard, the analog of Verlet-list reuse.  Inner steps run the
-force-only engine; each ``run()`` ends with one evaluation with energies.
-Safety is monitored on the device and checked on the host once per
-``run()``, after the steps:
+under a skin guard, the analog of Verlet-list reuse.  One function holds the
+body of a window: ``prepare``, then K times (``apply``, bonds, integrate),
+then the guard maxima.  On CUDA tensors each window is a replay of one CUDA
+graph of that body, the port's counterpart of the JAX package's jitted
+``lax.scan`` (:class:`_WindowGraphs`); CPU tensors run the same body
+eagerly.  Inner steps run the force-only engine; each ``run()`` ends with
+one eager evaluation with energies.  Safety is monitored on the device and
+checked on the host once per ``run()``, after the steps:
 
 * ``overflow`` — atoms beyond the static cell capacity (never silently
   dropped; raise and rebuild with a larger capacity)
@@ -20,13 +24,19 @@ Safety is monitored on the device and checked on the host once per
 
 Optionally adds harmonic bonds (flexible intramolecular geometry) to the
 forces of every step, with the minimum image on the bond vectors when
-``bonds_periodic``.
+``bonds_periodic``.  ``mixed_precision`` carries the positions in float64
+(the reference CUDA platform's "mixed" precision): forces, the kick and the
+velocities stay float32, the position update and the constraint solve run
+in float64.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..models.force import OpenMMException
+from ..ops import cuda_direct, cuda_pme
 from ..ops import engine as engine_mod
 from ..ops import fused as fused_mod
 from ..ops.geometry import min_image
@@ -70,6 +80,117 @@ def _bond_forces_fn(bonds, n, periodic=False, box=None):
     return bond_forces
 
 
+# the kernel wrappers' launch counters (name -> launches).  A replay moves
+# no Python, so a capture records what one replay launches, takes it back
+# out of the counters, and each replay adds it: the counts stay the number
+# of kernels the card ran.
+_COUNTERS = (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES)
+
+
+def _launch_counts():
+    return [dict(counter) for counter in _COUNTERS]
+
+
+def _take_launches(before):
+    """The launches counted since ``before`` (a :func:`_launch_counts`), as
+    (counter, name, launches) triples; the counters are set back to
+    ``before``."""
+    made = [(counter, name, counter[name] - old[name])
+            for counter, old in zip(_COUNTERS, before) for name in counter
+            if counter[name] != old[name]]
+    for counter, name, launches in made:
+        counter[name] -= launches
+    return made
+
+
+class _WindowGraphs:
+    """CUDA graphs of the K-step window, one per window length, on static
+    buffers: positions, velocities, box, gvals and the guard accumulators
+    ``ov``, ``dmax`` and ``span``.  ``run`` copies its inputs in and replays
+    a length's graph once per window.
+
+    A length seen for the first time runs its window eagerly on the real
+    state (that fills every lazy cache: index tables, convolution kernels,
+    constraint and bond constants, cuFFT plans, cuBLAS workspaces), on the
+    side stream that the capture then uses, as PyTorch's CUDA graph notes
+    ask; then it is captured, and its later windows replay.  The graphs read
+    ``data``'s tensors where they lay at capture: ``data`` tensors at other
+    addresses drop every graph, so that only the newest captures are kept.
+    A failed capture raises.  ``stats`` counts captures, replays and the
+    kernel launches the replays added to the counters."""
+
+    def __init__(self, window):
+        self.window = window
+        self.graphs = {}
+        self.key = None
+        self.buf = None
+        self.stream = None
+        self.stats = dict(captures=0, replays=0, replayed_launches=0)
+
+    def _bind(self, pos, vel, box, gvals, data):
+        key = (pos.device, tuple(pos.shape), tuple(gvals.shape),
+               tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
+                     for name, t in data.items()))
+        if key == self.key:
+            return
+        self.graphs.clear()
+        self.key = key
+        dev = pos.device
+        self.buf = dict(
+            pos=torch.empty_like(pos), vel=torch.empty_like(vel),
+            box=torch.empty_like(box), gvals=torch.empty_like(gvals),
+            ov=torch.zeros((), dtype=torch.int64, device=dev),
+            dmax=torch.zeros((), dtype=vel.dtype, device=dev),
+            span=torch.zeros((), dtype=torch.float64, device=dev))
+        self.stream = torch.cuda.Stream(dev)
+
+    def _body(self, k, data):
+        b = self.buf
+        pos, vel = self.window(k, b["pos"], b["vel"], b["box"], b["gvals"],
+                               data, b)
+        b["pos"].copy_(pos)
+        b["vel"].copy_(vel)
+
+    def _warm_up_and_capture(self, k, data):
+        current = torch.cuda.current_stream(self.buf["pos"].device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self._body(k, data)
+        current.wait_stream(self.stream)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self._body(k, data)
+        finally:
+            launches = _take_launches(before)
+        self.graphs[k] = (graph, launches)
+        self.stats["captures"] += 1
+
+    def run(self, blocks, pos, vel, box, gvals, data):
+        """Windows of the lengths in ``blocks`` from the given state;
+        returns (positions, velocities, (ov, dmax, span))."""
+        self._bind(pos, vel, box, gvals, data)
+        b = self.buf
+        for name, t in (("pos", pos), ("vel", vel), ("box", box),
+                        ("gvals", gvals)):
+            b[name].copy_(t)
+        for name in ("ov", "dmax", "span"):
+            b[name].zero_()
+        for k in blocks:
+            if k not in self.graphs:
+                self._warm_up_and_capture(k, data)
+                continue
+            graph, launches = self.graphs[k]
+            graph.replay()
+            for counter, name, n in launches:
+                counter[name] += n
+            self.stats["replays"] += 1
+            self.stats["replayed_launches"] += sum(n for _, _, n in launches)
+        return (b["pos"].clone(), b["vel"].clone(),
+                (b["ov"], b["dmax"], b["span"]))
+
+
 def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                  reuse_steps=None, constraints=None, target_skin=DEFAULT_SKIN,
                  mixed_precision=False, bonds=None, bonds_periodic=False,
@@ -83,11 +204,27 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     every step; ``bonds_periodic`` takes their vectors as minimum images in
     the plan's box (a HarmonicBondForce that uses periodic boundary
     conditions), else as they are.  Positions, velocities, box and gvals
-    may be numpy arrays
-    or tensors; the run works on the device of ``data``
-    (``ops.engine.plan_data``) in ``dtype`` and returns tensors there,
+    may be numpy arrays or tensors; the run works on the device of ``data``
+    (``ops.engine.plan_data``) in ``dtype`` and returns new tensors there,
     ``energy`` as a float64 0-d tensor.  The energy is the nonbonded
     energy, as in the JAX package.
+
+    On CUDA tensors every window of K steps replays a CUDA graph (see
+    :class:`_WindowGraphs`); CPU tensors run the same body eagerly.
+    ``run.eager`` is the same function without the graph, the reference
+    the graph is checked against; ``run.stats`` counts the captures, the
+    replays and the kernel launches the replays counted.
+    ``run.config["graph"]`` is False for a system whose constraint
+    clusters are wider than 3 (their pseudo-inverse is not captured): it
+    runs eagerly on the card too.
+
+    ``mixed_precision=True`` (with ``dtype=torch.float32`` only, as in the
+    JAX package; ignored otherwise) carries the positions in float64: each
+    step casts them to float32 for ``prepare``, ``apply`` and the bonds,
+    the kick runs in float32 and the velocities stay float32, and the
+    position update, the constraint solve and the velocity from the
+    constrained displacement run in float64.  ``run()`` then returns
+    float64 positions and float32 velocities.
 
     ``pme_pipeline`` is ``"stencil"`` (whole-grid spread and interpolation)
     or ``"grid"`` (the brick-window pipeline), for every evaluation of the
@@ -99,9 +236,8 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     skin/2 between rebuilds, or, on the min-image cell kernel's path, if an
     excluded pair spans a cell width or more.
     """
-    if mixed_precision:
-        raise NotImplementedError(
-            "make_md_step: mixed precision is not ported yet (ROADMAP A7)")
+    mixed = bool(mixed_precision) and dtype == torch.float32
+    pos_dtype = torch.float64 if mixed else dtype
     eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
                                       target_skin=target_skin, energies=False,
                                       pme_pipeline=pme_pipeline)
@@ -119,11 +255,13 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     box0 = np.asarray(plan.box0, dtype=np.float64)
     bond_forces = _bond_forces_fn(bonds, n, periodic=bonds_periodic,
                                   box=box0)
+    graph_ok = True
     if constraints is not None:
         from .constraints import make_constrainer
         c_mask = constraints[2] if len(constraints) > 2 else None
         proj_x, proj_v = make_constrainer(constraints[0], constraints[1],
                                           masses, n, mask=c_mask)
+        graph_ok = proj_x.__self__.capturable
     else:
         proj_x = proj_v = None
 
@@ -138,55 +276,89 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         reuse_steps = int(0.5 * skin / (dt * v_ref))
     K = min(25, max(1, int(reuse_steps)))
     disp_limit2 = (0.5 * skin) ** 2 if K > 1 else np.inf
+    device_consts = {}
 
-    def run(pos, vel, box, gvals, data, n_steps):
-        dev = data["base_params"].device
-        box = torch.as_tensor(box, device=dev).to(dtype)
+    def consts(dev):
+        """Inverse masses and the lambda sources on ``dev``, copied once."""
+        if dev not in device_consts:
+            device_consts[dev] = (
+                torch.as_tensor(inv_m_np, device=dev).to(dtype),
+                torch.as_tensor(plan.lam_source, dtype=torch.int64,
+                                device=dev))
+        return device_consts[dev]
+
+    def integrate(pos, vel, forces, inv_m):
+        """The kick in ``dtype``; the update, the constraint solve and the
+        velocity from the constrained displacement in the positions'
+        dtype (float64 under mixed precision), the velocity stored in
+        ``dtype``."""
+        vel = vel + dt * forces * inv_m
+        if proj_x is None:
+            return pos + dt * vel.to(pos.dtype), vel
+        pos_new = proj_x(pos, pos + dt * vel.to(pos.dtype))
+        vel_new = proj_v(pos_new, (pos_new - pos) / dt)
+        return pos_new, vel_new.to(vel.dtype)
+
+    def window(k, pos, vel, box, gvals, data, acc):
+        """One window: the slot rebuild at ``pos``, then ``k`` steps.
+        Returns (positions, velocities) and takes the guard maxima into
+        ``acc``'s ``ov``, ``dmax`` and ``span`` in place."""
+        inv_m = consts(pos.device)[0]
+        state = prepare(pos.to(dtype), box, gvals, data)
+        for _ in range(k):
+            pos32 = pos.to(dtype)
+            _, forces, aux = apply(pos32, box, gvals, data, state)
+            if bond_forces is not None:
+                forces = forces + bond_forces(pos32)
+            pos, vel = integrate(pos, vel, forces, inv_m)
+            torch.maximum(acc["dmax"], aux["maxdisp2"], out=acc["dmax"])
+        torch.maximum(acc["ov"], state["overflow"], out=acc["ov"])
+        if "excl_span" in state:
+            torch.maximum(acc["span"], state["excl_span"], out=acc["span"])
+        return pos, vel
+
+    graphs = _WindowGraphs(window)
+
+    def check_box(box):
         # the convolution kernel and static cell grid are box0-only
         # (tolerance covers the f32 cast of an f64 default box)
-        if not np.allclose(box.detach().to("cpu", torch.float64).numpy(),
-                           box0, rtol=0.0,
+        if torch.is_tensor(box):
+            box = box.detach().to("cpu", torch.float64).numpy()
+        if not np.allclose(np.asarray(box, dtype=np.float64), box0, rtol=0.0,
                            atol=1e-6 * float(np.max(np.abs(box0)))):
             raise OpenMMException(
                 "make_md_step: the runtime box must equal the plan's default "
                 "box (the cell grid and PME convolution kernel are "
                 "box-static); reinitialize for a different box.")
-        pos = torch.as_tensor(pos, device=dev).to(dtype)
+
+    def _run(pos, vel, box, gvals, data, n_steps, graphed):
+        dev = data["base_params"].device
+        check_box(box)
+        box = torch.as_tensor(box, device=dev).to(dtype)
+        pos = torch.as_tensor(pos, device=dev).to(pos_dtype)
         vel = torch.as_tensor(vel, device=dev).to(dtype)
         gvals = torch.as_tensor(gvals, device=dev).to(dtype)
-        inv_m = torch.as_tensor(inv_m_np, device=dev).to(dtype)
-
-        def integrate(pos, vel, forces):
-            vel = vel + dt * forces * inv_m
-            if proj_x is None:
-                return pos + dt * vel, vel
-            pos_new = proj_x(pos, pos + dt * vel)
-            vel = (pos_new - pos) / dt
-            return pos_new, proj_v(pos_new, vel)
-
-        ov = torch.zeros((), dtype=torch.int64, device=dev)
-        dmax = torch.zeros((), dtype=dtype, device=dev)
-        span = torch.zeros((), dtype=torch.float64, device=dev)
         n_outer, rem = divmod(int(n_steps), K)
-        for k in [K] * n_outer + ([rem] if rem else []):
-            state = prepare(pos, box, gvals, data)
-            for _ in range(k):
-                _, forces, aux = apply(pos, box, gvals, data, state)
-                if bond_forces is not None:
-                    forces = forces + bond_forces(pos)
-                pos, vel = integrate(pos, vel, forces)
-                dmax = torch.maximum(dmax, aux["maxdisp2"])
-            ov = torch.maximum(ov, state["overflow"])
-            if "excl_span" in aux:
-                span = torch.maximum(span, aux["excl_span"])
-        # energies variant for the reported energy
-        state = prepare(pos, box, gvals, data)
-        slice_e, _, aux = apply_full(pos, box, gvals, data, state)
+        blocks = [K] * n_outer + ([rem] if rem else [])
+        if graphed and graph_ok and dev.type == "cuda":
+            pos, vel, (ov, dmax, span) = graphs.run(blocks, pos, vel, box,
+                                                    gvals, data)
+        else:
+            acc = dict(ov=torch.zeros((), dtype=torch.int64, device=dev),
+                       dmax=torch.zeros((), dtype=dtype, device=dev),
+                       span=torch.zeros((), dtype=torch.float64, device=dev))
+            for k in blocks:
+                pos, vel = window(k, pos, vel, box, gvals, data, acc)
+            ov, dmax, span = acc["ov"], acc["dmax"], acc["span"]
+        # energies variant for the reported energy, eager
+        pos32 = pos.to(dtype)
+        state = prepare(pos32, box, gvals, data)
+        slice_e, _, _ = apply_full(pos32, box, gvals, data, state)
         ov = torch.maximum(ov, state["overflow"])
-        if "excl_span" in aux:
-            span = torch.maximum(span, aux["excl_span"])
+        if "excl_span" in state:
+            span = torch.maximum(span, state["excl_span"])
         energy = engine_mod.contract_energy(
-            slice_e, slice_lambdas(plan.lam_source, gvals))
+            slice_e, slice_lambdas(consts(dev)[1], gvals))
         # one device->host transfer for the guards
         ov_cell, dmax_h, span_h = torch.stack(
             [ov.to(torch.float64), dmax.to(torch.float64), span]).tolist()
@@ -208,8 +380,13 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                 f"(> skin/2 = {0.5 * skin:.4f} nm). Reduce reuse_steps.")
         return pos, vel, energy
 
-    run.config = dict(reuse_steps=K, skin=skin, mixed_precision=False,
-                      pme_pipeline=pme_pipeline,
+    def run(pos, vel, box, gvals, data, n_steps):
+        return _run(pos, vel, box, gvals, data, n_steps, graphed=True)
+
+    run.eager = functools.partial(_run, graphed=False)
+    run.stats = graphs.stats
+    run.config = dict(reuse_steps=K, skin=skin, mixed_precision=mixed,
+                      graph=graph_ok, pme_pipeline=pme_pipeline,
                       **{k: v for k, v in cfg.items()
                          if k in ("counts", "capacity", "pme_grid",
                                   "dispersion_grid")})

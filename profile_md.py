@@ -2,22 +2,29 @@
 """Where the time of the port's MD step goes, on one NVIDIA GPU.
 
     python3 profile_md.py [--solute] [--pipeline grid] [--method LJPME]
+                          [--precision mixed]
 
 Builds the benchmark system of port_systems.py (23,289 atoms, PME, SETTLE,
 2 fs) from extras/bench_state_rigid.npz, or with ``--solute`` its solute
 system (the 12-site chain in that box, harmonic bonds, the gather
 constrainer for the waters, the min-image cell pair kernel), under PME or
 with ``--method LJPME`` under LJPME, with the default PME pipeline or with
-``--pipeline grid`` the brick-window one, warms make_md_step up with one
-200-step chunk, then:
+``--pipeline grid`` the brick-window one, in single precision or with
+``--precision mixed`` in make_md_step's mixed precision (float64
+positions).  On the card make_md_step replays one CUDA graph per K-step
+window; the warm-up (one 200-step chunk and one run of the profiled
+length) captures the graphs of both window lengths.  Then:
 
 1. times five unprofiled 200-step chunks (torch.cuda.synchronize() around
    each) and prints the median and range of ms/step;
 2. runs one 40-step ``run()`` (ten slot rebuilds, one final evaluation
    with energies) under torch.profiler and prints, per step: the device
    busy time (union of the device activity intervals), the number of
-   kernel launches, the profiled wall time and the device's idle share,
-   then the device time of each kernel name, largest first.
+   kernels the device ran (copies and fills not counted, nor the kernels
+   that run a CUDA graph's copy and fill nodes), the host's launch calls
+   (``cudaLaunchKernel`` and ``cudaGraphLaunch``, each by name), the
+   profiled wall time and the device's idle share, then the device time
+   and the launches per step of each kernel name, largest time first.
 
 The timing lines name the card and its power limit as nvidia-smi reports
 them.
@@ -38,6 +45,9 @@ from port_systems import (DT_PS, N_MOLECULES, STATE_FILE, WATER_MASSES,
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
 PROFILED_STEPS = 40
+# the host's calls that put work on the card: one kernel, or one graph
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cudaGraphLaunch")
 
 
 def busy_us(intervals):
@@ -62,6 +72,10 @@ def main():
                         help="the PME pipeline (make_md_step's pme_pipeline)")
     parser.add_argument("--method", choices=("PME", "LJPME"), default="PME",
                         help="the nonbonded method of the system")
+    parser.add_argument("--precision", choices=("single", "mixed"),
+                        default="single",
+                        help="make_md_step's precision (mixed: float64 "
+                             "positions)")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -100,7 +114,8 @@ def main():
     capacity = max(8, int(np.ceil((occ + 16) / 4) * 4))
     run = make_md_step(plan, masses, dt=DT_PS, dtype=f32,
                        cell_capacity=capacity, constraints=constraints,
-                       bonds=bonds, pme_pipeline=args.pipeline)
+                       bonds=bonds, pme_pipeline=args.pipeline,
+                       mixed_precision=args.precision == "mixed")
     data = engine_mod.plan_data(plan, device=dev, dtype=f32)
     box = torch.as_tensor(np.diag([box_len] * 3), device=dev).to(f32)
     gvals = torch.as_tensor(plan.global_defaults, device=dev).to(f32)
@@ -109,7 +124,9 @@ def main():
     print(f"md: {n} atoms{' (solute path)' if args.solute else ''}, "
           f"config {run.config}")
 
-    p, v, _ = run(p, v, box, gvals, data, CHUNK_STEPS)       # warm-up
+    # warm-up: both window lengths' graphs are captured
+    p, v, _ = run(p, v, box, gvals, data, CHUNK_STEPS)
+    p, v, _ = run(p, v, box, gvals, data, PROFILED_STEPS)
     ms = []
     for _ in range(TIMED_CHUNKS):
         torch.cuda.synchronize()
@@ -133,26 +150,39 @@ def main():
         raise RuntimeError(f"profiled run: energy {float(energy)} is not "
                            "finite")
     intervals, per_name, n_kernels = [], defaultdict(float), 0
+    host, launches = defaultdict(int), defaultdict(int)
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name in HOST_LAUNCHES:
+                host[ev.name] += 1
             continue
         start, end = ev.time_range.start, ev.time_range.end
         intervals.append((start, end))
         per_name[ev.name] += end - start
-        if not ev.name.startswith(("Memcpy", "Memset")):
+        launches[ev.name] += 1
+        # copies and fills; a CUDA graph runs its copy and fill nodes as
+        # kernels of these names
+        if not ev.name.lower().startswith(("memcpy", "memset")):
             n_kernels += 1
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = busy_us(intervals) / 1000.0
     steps = PROFILED_STEPS
+    by_call = ", ".join(f"{k} {v / steps:.2f}"
+                        for k, v in sorted(host.items()))
     print(f"profiled: {steps} steps, wall {wall_ms / steps:.3f} ms/step, "
           f"device busy {busy_ms / steps:.3f} ms/step, "
-          f"{n_kernels / steps:.1f} kernel launches/step, device idle "
+          f"{n_kernels / steps:.1f} kernel launches/step, "
+          f"{sum(host.values()) / steps:.2f} host launch calls/step "
+          f"({by_call}), device idle "
           f"{100.0 * (1.0 - busy_ms / wall_ms):.1f}% ({card})")
+    if hasattr(run, "stats"):        # the graph's captures and replays
+        print(f"graphs: {run.stats}")
     total_us = sum(per_name.values())
-    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:25]:
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1000.0 / steps:8.4f} ms/step "
-              f"{100.0 * us / total_us:5.1f}%  {name[:110]}")
+              f"{100.0 * us / total_us:5.1f}% "
+              f"{launches[name] / steps:6.3f}/step  {name[:110]}")
     return 0
 
 

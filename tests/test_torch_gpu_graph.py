@@ -1,0 +1,195 @@
+"""The MD step's CUDA graphs against its eager body, on the card.
+
+``make_md_step`` runs every K-step window on CUDA tensors as a replay of a
+captured CUDA graph; ``run.eager`` runs the same body without it.  On the
+benchmark's rigid-water box (23,289 atoms, pair_column, SETTLE) the two
+give positions and velocities equal to the bit, and energies within 1e-12
+relative (the exclusion rows' float64 ``index_add_`` of the final
+evaluation may sum in another order); on the solute box (pair_cell, bonds,
+M-SHAKE, whose ``index_add`` sites use float atomics) positions within
+1e-5 nm.  Marked ``gpu``; they skip (from inside the fixture) where no CUDA
+device is present.  On a machine with an H100:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_graph.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nonbondedslicing_tpu_torch as nbt
+from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+from nonbondedslicing_tpu_torch.ops import engine as tengine
+from nonbondedslicing_tpu_torch.ops import plan as tplan
+from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
+
+from port_systems import (DT_PS, N_MOLECULES, STATE_FILE, WATER_MASSES,
+                          build_solute_system, build_system,
+                          solute_velocities)
+
+pytestmark = pytest.mark.gpu
+
+# cell capacity with room for the density fluctuations of a few hundred
+# steps (profile_md.py's choice for the benchmark state)
+CAPACITY = 144
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100 machine)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def rigid(cuda):
+    system, force, box_len, constraints = build_system(nbt)
+    plan = tplan.build_plan(force, system)
+    blob = np.load(STATE_FILE)
+    return dict(plan=plan, constraints=constraints,
+                masses=np.tile(WATER_MASSES, N_MOLECULES),
+                pos=torch.as_tensor(blob["positions"], device=cuda).float(),
+                vel=torch.as_tensor(blob["velocities"], device=cuda).float(),
+                box=torch.as_tensor(np.diag([box_len] * 3), device=cuda
+                                    ).float(),
+                gvals=torch.ones(2, device=cuda),
+                data=tengine.plan_data(plan, device=cuda,
+                                       dtype=torch.float32))
+
+
+def _launches():
+    return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+
+
+def _made(before):
+    now = _launches()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _rigid_run(rigid, **kw):
+    return make_md_step(rigid["plan"], rigid["masses"], dt=DT_PS,
+                        cell_capacity=CAPACITY,
+                        constraints=rigid["constraints"], **kw)
+
+
+def _args(s, pos=None, vel=None):
+    return (s["pos"] if pos is None else pos, s["vel"] if vel is None
+            else vel, s["box"], s["gvals"], s["data"])
+
+
+def test_graph_equals_eager_rigid(rigid):
+    """Two windows of K from the same state: the graph's replays against
+    the eager body, positions and velocities to the bit, the same kernel
+    launches counted."""
+    run = _rigid_run(rigid)
+    K = run.config["reuse_steps"]
+    assert run.config["graph"]
+    p, v, _ = run(*_args(rigid), K)          # the warm-up window, captured
+    assert run.stats["captures"] == 1 and run.stats["replays"] == 0
+    before = _launches()
+    p_g, v_g, e_g = run(*_args(rigid, p, v), 2 * K)
+    made_g = _made(before)
+    assert run.stats["replays"] == 2 and run.stats["captures"] == 1
+    before = _launches()
+    p_e, v_e, e_e = run.eager(*_args(rigid, p, v), 2 * K)
+    made_e = _made(before)
+    assert made_g == made_e and made_g["pair_column"] == 2 * K
+    assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+
+
+def test_graph_launch_counts_per_replay(rigid):
+    """A capture counts nothing; each replay adds the kernels of one
+    window, and a run of n windows counts what the eager body does."""
+    run = _rigid_run(rigid, pme_pipeline="grid")
+    K = run.config["reuse_steps"]
+    before = _launches()
+    run.eager(*_args(rigid), K)
+    eager_one = _made(before)
+    before = _launches()
+    run(*_args(rigid), K)                    # eager window + capture
+    assert _made(before) == eager_one
+    before = _launches()
+    run(*_args(rigid), 5 * K)
+    made = _made(before)
+    assert run.stats["replays"] == 5
+    # five windows' kernels and one final evaluation with energies
+    assert made["pme_fold"] == 5 * K + 1
+    assert made["pair_column"] == 5 * K
+    assert made["pair_column_energies"] == 1
+    # made = 5 windows + one final evaluation, eager_one = 1 + 1
+    assert 4 * run.stats["replayed_launches"] == 5 * (
+        sum(made.values()) - sum(eager_one.values()))
+
+
+def test_graph_recaptures_on_new_data_not_on_gvals(rigid, cuda):
+    """A lambda sweep of three values replays one capture (gvals is copied
+    into its buffer) and gives the eager body's energies; new ``data``
+    tensors are captured anew, and only the newest graphs are kept."""
+    run = _rigid_run(rigid)
+    K = run.config["reuse_steps"]
+    run(*_args(rigid), K)
+    assert run.stats["captures"] == 1
+    for lam in (1.0, 0.5, 0.0):
+        gvals = torch.tensor([lam, 1.0 - 0.5 * lam], device=cuda)
+        args = (rigid["pos"], rigid["vel"], rigid["box"], gvals,
+                rigid["data"])
+        p_g, _, e_g = run(*args, 2 * K)
+        p_e, _, e_e = run.eager(*args, 2 * K)
+        assert torch.equal(p_g, p_e)
+        assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+    assert run.stats["captures"] == 1 and run.stats["replays"] == 6
+    data2 = tengine.plan_data(rigid["plan"], device=cuda,
+                              dtype=torch.float32)
+    p_g, _, _ = run(rigid["pos"], rigid["vel"], rigid["box"],
+                    rigid["gvals"], data2, 2 * K)
+    assert run.stats["captures"] == 2 and run.stats["replays"] == 7
+    p_e, _, _ = run.eager(*_args(rigid), 2 * K)
+    assert torch.equal(p_g, p_e)
+
+
+def test_graph_mixed_precision(rigid):
+    """mixed inside the graph: float64 positions, float32 velocities, to
+    the bit against the eager body."""
+    run = _rigid_run(rigid, mixed_precision=True)
+    assert run.config["mixed_precision"] and run.config["graph"]
+    K = run.config["reuse_steps"]
+    p, v, _ = run(*_args(rigid), K)
+    assert p.dtype == torch.float64 and v.dtype == torch.float32
+    p_g, v_g, e_g = run(*_args(rigid, p, v), 2 * K)
+    p_e, v_e, e_e = run.eager(*_args(rigid, p, v), 2 * K)
+    assert run.stats["replays"] == 2
+    assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+
+
+def test_graph_solute_within_tolerance(cuda):
+    """The solute box (pair_cell, bonds, the gather constrainer): the
+    graph against the eager body over two windows, positions within 1e-5
+    nm (float atomics in the bonds' and M-SHAKE's index_add)."""
+    _, _, box_len, _ = build_system(nbt)
+    blob = np.load(STATE_FILE)
+    (system, force, pos_np, masses, constraints, bonds,
+     kept) = build_solute_system(nbt, blob["positions"], box_len)
+    plan = tplan.build_plan(force, system)
+    run = make_md_step(plan, masses, dt=DT_PS, cell_capacity=CAPACITY,
+                       constraints=constraints, bonds=bonds)
+    assert run.config["graph"]
+    K = run.config["reuse_steps"]
+    data = tengine.plan_data(plan, device=cuda, dtype=torch.float32)
+    args = (torch.as_tensor(pos_np, device=cuda).float(),
+            torch.as_tensor(solute_velocities(blob["velocities"], kept),
+                            device=cuda).float(),
+            torch.as_tensor(np.diag([box_len] * 3), device=cuda).float(),
+            torch.as_tensor(plan.global_defaults, device=cuda).float(),
+            data)
+    run(*args, K)
+    before = _launches()
+    p_g, v_g, e_g = run(*args, 2 * K)
+    made_g = _made(before)
+    before = _launches()
+    p_e, v_e, e_e = run.eager(*args, 2 * K)
+    assert made_g == _made(before) and made_g["pair_cell"] == 2 * K
+    assert run.stats["replays"] == 2
+    assert float((p_g - p_e).abs().max()) <= 1e-5
+    assert abs(float(e_g) - float(e_e)) <= 1e-5 * abs(float(e_e))

@@ -1,8 +1,11 @@
 """Port MD step (make_md_step) vs the JAX package's on the rigid-water box
-of tests/test_md_conservation.py (under PME and LJPME), on a flexible chain
-solvated in water, with a harmonic bond across a box face, and its guards;
-and its NVE energy conservation (the twin of
+of tests/test_md_conservation.py (under PME and LJPME, in single and mixed
+precision), on a flexible chain solvated in water, with a harmonic bond
+across a box face, and its guards; and its NVE energy conservation in both
+precisions (the twin of
 tests/test_md_conservation.py::test_nve_energy_conservation_rigid_water).
+These CPU runs take make_md_step's eager loop; tests/test_torch_gpu_graph.py
+holds its CUDA graphs against it on the card.
 
 The box holds 512 waters instead of 125: the fused engine needs at least 3
 cells of one cutoff per axis, and the 125-water box (1.55 nm) runs the JAX
@@ -29,8 +32,8 @@ from nonbondedslicing_tpu_torch.ops.fused import make_fused_engine
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
 from port_systems import KB, build_solute_system
-from tests.test_torch_plan import both_plans, jax_data_np, pair_system, \
-    water_box
+from tests.test_torch_plan import D_HH, D_OH, both_plans, jax_data_np, \
+    pair_system, water_box
 
 torch.set_num_threads(2)
 
@@ -49,8 +52,8 @@ def _setup(method=None):
 def _trajectory_against_jax(method=None, steps=10, bonds=None, **kw):
     """``steps`` steps of the water box from rest through both packages'
     make_md_step with the same arguments: positions to 1e-4 nm, the final
-    energy to 1e-3 relative (float32).  Returns the port's run, positions
-    and energy."""
+    energy to 1e-3 relative (float32 forces).  Returns the port's run,
+    positions and energy."""
     plan_j, plan_t, positions, masses, constraints, box, data_np = _setup(
         method)
     run_t = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float32,
@@ -72,7 +75,10 @@ def _trajectory_against_jax(method=None, steps=10, bonds=None, **kw):
                           jnp.zeros(positions.shape, jnp.float32),
                           jnp.asarray(np.diag([box] * 3), jnp.float32),
                           jnp.asarray([1.0], jnp.float32), data_j, steps)
-    assert p_t.dtype == torch.float32 and e_t.dtype == torch.float64
+    mixed = kw.get("mixed_precision", False)
+    assert p_t.dtype == (torch.float64 if mixed else torch.float32)
+    assert v_t.dtype == torch.float32 and e_t.dtype == torch.float64
+    assert np.asarray(p_j).dtype == p_t.numpy().dtype
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0,
                                atol=1e-4)
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)
@@ -219,13 +225,62 @@ def test_md_excluded_pair_span_guard():
     assert 0.0 < float(aux["excl_span"]) < 1.0
 
 
-def test_md_unported_options_raise():
-    plan_j, plan_t, positions, masses, constraints, box, data_np = _setup()
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_md_step(plan_t, masses, dt=0.001, mixed_precision=True)
+def test_md_mixed_matches_jax():
+    """mixed_precision=True: float64 positions with float32 forces, kick
+    and velocities, the position update and SETTLE in float64.  Against the
+    JAX package's mixed run (its double-single positions) on the water box
+    for 10 steps: positions to 1e-4 nm, the energy to 1e-3 relative.
+    Against the port's single run, to the bounds of the JAX package's test
+    (tests/test_md_conservation.py::test_mixed_precision_default_and_
+    trajectory_consistency): positions to 1e-4 nm, the energy to 1e-3 |E|
+    + 1; the water geometry holds to 1e-8 nm (the JAX test allows 5e-6),
+    since the constraint solve runs in float64.  mixed_precision is
+    ignored beside dtype=float64, as in the JAX package."""
+    run_m, p_m, e_m = _trajectory_against_jax(mixed_precision=True)
+    assert run_m.config["mixed_precision"] is True
+    _, plan_t, positions, masses, constraints, box, data_np = _setup()
+    run_s = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float32,
+                         constraints=constraints, reuse_steps=4)
+    assert run_s.config["mixed_precision"] is False
+    p_s, _, e_s = run_s(positions, np.zeros_like(positions),
+                        np.diag([box] * 3), np.array([1.0]),
+                        tengine.data_from_numpy(data_np, device="cpu",
+                                                dtype=torch.float32), 10)
+    np.testing.assert_allclose(p_m.numpy(), p_s.double().numpy(), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(float(e_m), float(e_s), rtol=0,
+                               atol=1e-3 * abs(float(e_s)) + 1.0)
+    w = p_m.numpy().reshape(-1, 3, 3)
+    for (a, b), d in (((0, 1), D_OH), ((0, 2), D_OH), ((1, 2), D_HH)):
+        err = np.abs(np.linalg.norm(w[:, a] - w[:, b], axis=-1) - d).max()
+        assert err < 1e-8, ((a, b), err)
+    run64 = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float64,
+                         mixed_precision=True)
+    assert run64.config["mixed_precision"] is False
     # harmonic bonds are ported
     run = make_md_step(plan_t, masses, dt=0.001, bonds=[(0, 1, 0.1, 1000.0)])
     assert run.config["reuse_steps"] >= 1
+
+
+def test_md_graph_flag_for_wide_clusters():
+    """A constraint cluster wider than 3 (two waters joined by an O-O
+    constraint: 7 coupled constraints) takes the gather constrainer's
+    pseudo-inverse, which a CUDA graph cannot capture: run.config["graph"]
+    is False, so the card runs it eagerly.  Rigid waters alone are
+    graphed."""
+    from nonbondedslicing_tpu_torch.runtime.constraints import \
+        cluster_constraints
+    _, plan_t, positions, masses, (cons_p, cons_d), box, _ = _setup()
+    triples = [(i, j, d) for pairs, dists in zip(cons_p, cons_d)
+               for (i, j), d in zip(pairs, dists)]
+    run = make_md_step(plan_t, masses, dt=0.001,
+                       constraints=cluster_constraints(triples, len(masses)))
+    assert run.config["graph"] is True
+    d_oo = float(np.linalg.norm(positions[0] - positions[3]))
+    wide = cluster_constraints(triples + [(0, 3, d_oo)], len(masses))
+    assert wide[0].shape[1] == 7
+    run = make_md_step(plan_t, masses, dt=0.001, constraints=wide)
+    assert run.config["graph"] is False
 
 
 SOLUTE_BOX = 3.0
@@ -279,10 +334,15 @@ def test_md_solute_trajectory_matches_jax(monkeypatch):
     np.testing.assert_allclose(float(e_t), float(e_j), rtol=1e-3)
 
 
-@pytest.mark.parametrize("method", ["PME", "LJPME"])
-def test_nve_energy_conservation(method):
+@pytest.mark.parametrize("method,precision", [
+    pytest.param("PME", "single", id="PME"),
+    pytest.param("LJPME", "single", id="LJPME"),
+    pytest.param("PME", "mixed", id="PME-mixed"),
+    pytest.param("LJPME", "mixed", id="LJPME-mixed")])
+def test_nve_energy_conservation(method, precision):
     """Twin of tests/test_md_conservation.py::test_nve_energy_conservation_
-    rigid_water for single precision, on this file's 512-water box (K = 2:
+    rigid_water in single and in mixed precision (float64 positions), on
+    this file's 512-water box (K = 2:
     the lattice relaxes fast at first): settle it for 20 steps of 1 fs,
     then PE + KE may drift by at most 5% of the kinetic energy scale over
     40 more.  PE is the energy each run() returns (its last evaluation,
@@ -292,7 +352,8 @@ def test_nve_energy_conservation(method):
         getattr(nbs.SlicedNonbondedForce, method))
     data = tengine.plan_data(plan_t, device="cpu", dtype=torch.float32)
     run = make_md_step(plan_t, masses, dt=0.001, dtype=torch.float32,
-                       constraints=constraints, reuse_steps=2)
+                       constraints=constraints, reuse_steps=2,
+                       mixed_precision=precision == "mixed")
     box_arr = np.diag([box] * 3)
 
     def total_energy(vel, pe):

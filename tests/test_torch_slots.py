@@ -75,3 +75,40 @@ def test_overflow_count_matches_jax():
     assert int(st_t["overflow"]) == int(st_j["overflow"]) > 0
     np.testing.assert_array_equal(st_t["table"].numpy(),
                                   np.asarray(st_j["table"]))
+
+
+def _occupancy_masked(cell, n, counts, capacity):
+    """The slot table as build_occupancy built it before it was made safe
+    to capture in a CUDA graph: only the atoms that fit are written, through
+    a boolean mask (a host sync on the card)."""
+    n_cells = counts[0] * counts[1] * counts[2]
+    order = torch.argsort(cell, stable=True)
+    sorted_cell = cell[order]
+    starts = torch.searchsorted(
+        sorted_cell, torch.arange(n_cells, dtype=cell.dtype))
+    rank = torch.arange(n) - starts[sorted_cell]
+    fits = rank < capacity
+    dest = torch.where(fits, sorted_cell * capacity + rank,
+                        torch.full_like(rank, n_cells * capacity))
+    table = torch.full((n_cells * capacity + 1,), n, dtype=torch.int32)
+    table[dest[fits]] = order[fits].to(torch.int32)
+    return table[:-1].reshape(n_cells, capacity), torch.sum(~fits)
+
+
+@pytest.mark.parametrize("capacity", [2, 5, 40])
+def test_occupancy_without_mask_equals_masked(capacity):
+    """build_occupancy writes every atom, those that do not fit into a
+    dropped sink entry: the table and the overflow count equal the masked
+    version's to the bit, with overflowing cells (capacity 2, 5) and
+    without (40)."""
+    from nonbondedslicing_tpu_torch.ops.neighbors import build_occupancy
+    counts = (3, 4, 5)
+    n = 700
+    rng = np.random.default_rng(capacity)
+    # skewed cell ids: some cells crowded, some empty
+    cell = torch.as_tensor(np.minimum(rng.geometric(0.05, n) - 1, 59))
+    table, overflow = build_occupancy(cell, n, counts, capacity)
+    ref_table, ref_overflow = _occupancy_masked(cell, n, counts, capacity)
+    assert (int(overflow) > 0) == (capacity < 40)
+    assert int(overflow) == int(ref_overflow)
+    assert torch.equal(table, ref_table)

@@ -77,13 +77,30 @@ the last line:
 9. the CUDA graph against the eager body (``run.eager``, the same window
    without the graph): from the state of one captured window, two windows
    of K steps each way, the same kernel launches counted; on the rigid box
-   positions and velocities equal to the bit and the energy within 1e-12
-   relative, on the solute box positions within 1e-5 nm; then 200-step
-   chunks of both timed in turns;
+   (under PME, under LJPME and through pme_pipeline="grid") and on the
+   solute box positions and velocities equal to the bit and the energy
+   within 1e-12 relative; then 200-step chunks of both timed in turns;
 10. mixed precision (float64 positions) on the benchmark box: one warm-up
    chunk and three timed chunks with phase 5's checks; then the NVE pair,
    single and mixed, each 20 chunks of 100 steps from the benchmark state,
-   the drift of PE + KE from a linear fit; mixed must drift less.
+   the drift of PE + KE from a linear fit; mixed must drift less;
+11. the generic engine, ``ops/engine.make_compute`` (evaluations only): the
+   rigid box under CutoffPeriodic, Ewald, PME and LJPME and the solute box
+   under PME and LJPME, each in float32 on the card through the kernel
+   route (csrc/pair_cell.cu on a slot table built per call: reaction-field
+   mode under CutoffPeriodic, Ewald mode otherwise): its launches (the
+   energies variant once, nothing else), overflow 0, the excluded pairs'
+   span under one cell, against the same make_compute in float64 on the
+   card (the plain cell list and the generic exclusion corrections, no
+   kernel) with phase 4's gates (under the reaction field, whose force
+   jumps at the cutoff, the atoms with a pair within 1e-6 nm of it are
+   held to the jump instead); pair_cell against its twin at these shapes
+   in both modes and under LJPME; the CUDA-event ms of one call per method
+   and pair_cell's share; the rigid PME box against the fused engine (B4
+   against B1, both float32) with the same gates; direct space alone plus
+   the reciprocal part alone against one call; NoCutoff and
+   CutoffNonPeriodic (all pairs, no kernel) on a drop of the solute box
+   (the chain and the waters within 1.5 nm of it), float32 against float64.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -114,9 +131,10 @@ must equal it to the bit.
 
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
-"solute", "rigid_ljpme" or "solute_ljpme"): launches in that path's run
-(the MD runs of phases 5, 6, 7 and 8; the solute box's evaluations of
-phases 7 and 8), max abs error against the plain
+"solute", "rigid_ljpme", "solute_ljpme" or "generic"): launches in that
+path's run (the MD runs of phases 5, 6, 7 and 8; the solute box's
+evaluations of phases 7 and 8; phase 11's six float32 evaluations), max
+abs error against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
 operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
 tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
@@ -137,7 +155,7 @@ import numpy as np
 
 from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
                           SOLUTE_SITES, STATE_FILE, WATER_MASSES,
-                          build_solute_system, build_system,
+                          build_solute_system, build_system, cluster_waters,
                           max_cell_occupancy, solute_velocities)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -168,10 +186,21 @@ TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
 TOL_EVAL_DERIV = 1e-5     # relative dE/dlambda
 TOL_CONSTRAINT = 1e-5     # nm
-TOL_GRAPH_SOLUTE = 1e-5   # nm, graph vs eager on the solute box (float
-                          # atomics in the bonds' and M-SHAKE's index_add)
-TOL_GRAPH_ENERGY = 1e-12  # relative, graph vs eager on the rigid box (the
-                          # exclusion rows' float64 index_add_ may reorder)
+TOL_GRAPH_ENERGY = 1e-12  # relative, graph vs eager (the exclusion rows'
+                          # float64 index_add_ may reorder)
+TOL_SPLIT = 1e-6          # generic engine: direct + reciprocal vs one call
+                          # (f32 sums in another order; PME's index_add_)
+GENERIC_METHODS = ("CutoffPeriodic", "Ewald", "PME", "LJPME")
+CLUSTER_NM = 1.5          # the non-periodic drop: waters this near the chain
+# the drop's dE/dlambda (phase 11) sums some 30,000 chain-water pair
+# energies of either sign to a few kJ/mol; the largest float32 rounding of
+# it read so far is 1.2e-4 kJ/mol (on the CPU; 4.1e-5 on an H100), so its
+# denominator is clamped where the relative gate admits twice that
+DROP_DERIV_ROUNDING = 1.2e-4   # kJ/mol
+DROP_DERIV_FLOOR = 2 * DROP_DERIV_ROUNDING / TOL_EVAL_DERIV   # 24 kJ/mol
+DROP_JUMP = 2.5           # kJ/mol/nm: the reaction-field force jump of one
+                          # pair at the cutoff (two oxygens: 2.24)
+GENERIC_REPS = 5          # timed make_compute calls per method
 
 # the bound: peaks of one H100 SXM (NVIDIA's data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12           # FP32 outside the tensor cores
@@ -257,9 +286,19 @@ ENTRIES = (
     ("pair_cell_ljpme_energies", "pair_cell_ljpme_energies", "solute_ljpme",
      "solute_ljpme"),
 ) + tuple((k + "_solute", k, "solute_ljpme", "solute_ljpme")
-          for k in DISPERSION_KERNELS)
-# the kernels each run must launch; it must launch no other
+          for k in DISPERSION_KERNELS) + (
+    ("pair_cell_energies_generic_rf", "pair_cell_energies", "generic",
+     "generic_rf"),
+    ("pair_cell_energies_generic", "pair_cell_energies", "generic",
+     "generic"),
+    ("pair_cell_ljpme_energies_generic", "pair_cell_ljpme_energies",
+     "generic", "generic"),
+)
+# the kernels each run must launch; it must launch no other ("generic":
+# phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode)
 RUN_KERNELS = {
+    "generic": {"pair_cell_energies", "pair_cell_ljpme_energies"},
+    "generic_rf": {"pair_cell_energies"},
     "rigid": {"pair_column", "pair_column_energies", "pme_spread",
               "pme_spread_energies", "pme_interp"},
     "solute": {"pair_cell", "pair_cell_energies", "pme_spread",
@@ -1103,14 +1142,13 @@ def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
 
 
 def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
-                        data, pos_tol, reset_launches, card):
+                        data, reset_launches, card):
     """Two windows of K steps replayed from make_md_step's CUDA graph
     against the same windows through its eager body (``run.eager``), from
     the state one captured window reaches: positions and velocities equal
-    to the bit (``pos_tol`` 0) or within ``pos_tol`` nm, the energy within
-    1e-12 relative (TOL_GRAPH_ENERGY, or TOL_EVAL_ENERGY with a tolerance),
-    the same kernel launches counted; then CHUNK_STEPS-step chunks timed
-    in turns graph, eager, eager, graph."""
+    to the bit, the energy within 1e-12 relative (TOL_GRAPH_ENERGY), the
+    same kernel launches counted; then CHUNK_STEPS-step chunks timed in
+    turns graph, eager, eager, graph."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     run = make_run(capacity, None)
@@ -1139,18 +1177,11 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
     print(f"{label}: {2 * K} steps, graph against eager: max|dx| {dp:.3e} "
           f"nm, max|dv| {dv:.3e} nm/ps, energy {float(e_g):.6f} against "
           f"{float(e_e):.6f} kJ/mol")
-    if pos_tol == 0.0:
-        check(torch.equal(p_g, p_e) and torch.equal(v_g, v_e),
-              f"{label}: positions and velocities equal to the bit")
-        check(rel_e <= TOL_GRAPH_ENERGY,
-              f"{label}: relative energy difference {rel_e:.3e} <= "
-              f"{TOL_GRAPH_ENERGY}")
-    else:
-        check(dp <= pos_tol, f"{label}: positions within {dp:.3e} <= "
-              f"{pos_tol} nm")
-        check(rel_e <= TOL_EVAL_ENERGY,
-              f"{label}: relative energy difference {rel_e:.3e} <= "
-              f"{TOL_EVAL_ENERGY}")
+    check(torch.equal(p_g, p_e) and torch.equal(v_g, v_e),
+          f"{label}: positions and velocities equal to the bit")
+    check(rel_e <= TOL_GRAPH_ENERGY,
+          f"{label}: relative energy difference {rel_e:.3e} <= "
+          f"{TOL_GRAPH_ENERGY}")
     ms = {"graph": [], "eager": []}
     for name in ("graph", "eager", "eager", "graph"):
         fn = run if name == "graph" else run.eager
@@ -1182,6 +1213,344 @@ def nve_drift(label, chunks, p, v, box, gvals, data, masses, card):
           f"PE + KE {e[0]:.1f} -> {e[-1]:.1f} kJ/mol, drift {slope:.2f} "
           f"kJ/mol/ps (linear fit; {p.shape[0]} atoms, {card})")
     return slope
+
+
+def card_gates(label, plan, out32, out64, gvals_np, skip_atoms=None,
+               names=("f32", "f64"), deriv_floor=1.0):
+    """A float32 evaluation (slice energies, forces) against a reference
+    (float64 on the card, named by ``names``) with phase 4's gates: total
+    energy TOL_EVAL_ENERGY relative, forces TOL_EVAL_FORCE of max|F|, every
+    dE/dlambda TOL_EVAL_DERIV relative (denominator clamped at
+    ``deriv_floor`` kJ/mol).  ``skip_atoms`` (a bool mask) leaves atoms
+    out of the force gate; the caller holds them to their own bound, which
+    it is given back: their max|dF|."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    (e32, f32), (e64, f64) = out32, out64
+    lam = slice_lambdas(plan.lam_source,
+                        torch.as_tensor(gvals_np, dtype=torch.float64))
+    E32 = float(engine_mod.contract_energy(e32.cpu(), lam))
+    E64 = float(engine_mod.contract_energy(e64.cpu(), lam))
+    rel_e = abs(E32 - E64) / abs(E64)
+    df = (f32.double() - f64.double()).abs().max(dim=1).values
+    fmax = float(f64.abs().max())
+    skipped_err = 0.0
+    if skip_atoms is not None and bool(skip_atoms.any()):
+        skipped_err = float(df[skip_atoms].max())
+        df = df[~skip_atoms]
+    f_err = float(df.max()) / fmax
+    d32 = engine_mod.parameter_derivatives(e32.cpu(), plan.deriv_mask)
+    d64 = engine_mod.parameter_derivatives(e64.cpu(), plan.deriv_mask)
+    rel_d = float(((d32 - d64).abs()
+                   / d64.abs().clamp(min=deriv_floor)).max())
+    a, b = names
+    print(f"{label}: E {a} {E32:.6f}, {b} {E64:.6f} kJ/mol; dE/dlambda {a} "
+          f"{d32.tolist()}, {b} {d64.tolist()}; max|F| {fmax:.1f}")
+    check(math.isfinite(E32) and rel_e <= TOL_EVAL_ENERGY,
+          f"{label}: relative energy error {rel_e:.3e} <= {TOL_EVAL_ENERGY}")
+    check(f_err <= TOL_EVAL_FORCE,
+          f"{label}: force error {f_err:.3e} of max|F| <= {TOL_EVAL_FORCE}"
+          + ("" if skip_atoms is None else
+             f" ({int(skip_atoms.sum())} atoms at the cutoff left out)"))
+    check(rel_d <= TOL_EVAL_DERIV,
+          f"{label}: relative dE/dlambda error {rel_d:.3e} <= "
+          f"{TOL_EVAL_DERIV} (denominator at least {deriv_floor} kJ/mol)")
+    return skipped_err
+
+
+def near_cutoff_atoms(slot_pos, slot_ids, box, cutoff, n, counts, delta):
+    """(atoms with a pair whose minimum-image distance lies within
+    ``delta`` of the cutoff, as a bool mask (n,), and the most such pairs
+    of one atom), pairs taken over every 27-cell neighbourhood of the slot
+    table in float64 (rectangular box)."""
+    import torch
+    g, _, C = slot_pos.shape
+    pos = slot_pos.double()
+    lengths = torch.diagonal(box).double().reshape(1, 3, 1, 1)
+    grid_pos = pos.reshape(*counts, 3, C)
+    grid_ids = slot_ids.reshape(*counts, C)
+    hits = torch.zeros(n + 1, dtype=torch.int64, device=slot_pos.device)
+    for o in range(27):
+        roll = dict(shifts=(1 - o // 9, 1 - (o // 3) % 3, 1 - o % 3),
+                    dims=(0, 1, 2))
+        cand = torch.roll(grid_pos, **roll).reshape(g, 3, C)
+        cids = torch.roll(grid_ids, **roll).reshape(g, C).long()
+        d = pos[:, :, :, None] - cand[:, :, None, :]
+        d = d - lengths * torch.round(d / lengths)
+        r = torch.sqrt(torch.sum(d * d, dim=1))
+        near = ((r - cutoff).abs() < delta) & (cids < n)[:, None, :]
+        near &= (slot_ids < n)[:, :, None]
+        rows = slot_ids.long()[:, :, None].expand_as(near)
+        hits.index_add_(0, rows[near], torch.ones_like(rows[near]))
+    hits = hits[:n]
+    return hits > 0, int(hits.max())
+
+
+def call_ms(fn, reps=GENERIC_REPS):
+    """Median CUDA-event ms of one call of fn over ``reps`` calls after a
+    warm-up call, each timed from an event before it to one after it:
+    whatever host work the call holds the card up with counts, as its
+    caller sees it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def generic_pair_config(plan):
+    """The cell kernel's configuration for ``plan`` on the generic engine's
+    kernel route, made from the plan: its cell grid without skin
+    (``neighbors.choose_cell_grid``), Ewald mode under Ewald, PME and LJPME,
+    reaction field under CutoffPeriodic (ReferenceSlicedLJCoulombIxn.cpp:
+    66-67)."""
+    from nonbondedslicing_tpu_torch.models.force import NonbondedForce
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, neighbors
+    counts, capacity = neighbors.choose_cell_grid(plan.box0, plan.cutoff,
+                                                  plan.num_particles)
+    eps_rf = plan.rf_dielectric
+    return cuda_direct.PairConfig(
+        counts=tuple(counts), capacity=capacity, nsub=plan.num_subsets,
+        emax=plan.exclusion_list.shape[1],
+        mode=(cuda_direct.MODE_REACTION_FIELD
+              if plan.method == NonbondedForce.CutoffPeriodic
+              else cuda_direct.MODE_EWALD),
+        cutoff=plan.cutoff,
+        krf=plan.cutoff ** -3 * (eps_rf - 1.0) / (2.0 * eps_rf + 1.0),
+        crf=(1.0 / plan.cutoff) * (3.0 * eps_rf) / (2.0 * eps_rf + 1.0),
+        ewald_alpha=plan.ewald_alpha, use_switch=bool(plan.use_switch),
+        switch_distance=plan.switch_distance,
+        exceptions_periodic=bool(plan.exceptions_periodic),
+        ljpme=plan.method == NonbondedForce.LJPME,
+        dispersion_alpha=plan.dispersion_alpha)
+
+
+def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
+                   box_len, fused, reps):
+    """Phase 11: the generic engine ``make_compute`` at full width, in
+    evaluations only.  ``fused``: (apply, state, config, inputs) of phase
+    3's rigid PME evaluation through the fused engine."""
+    import dataclasses
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import (cuda_direct, cuda_pme,
+                                                kernel_direct)
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import params as params_mod
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    from nonbondedslicing_tpu_torch.utils.constants import ONE_4PI_EPS0
+    f32, f64 = torch.float32, torch.float64
+
+    def launches():
+        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+
+    def inputs(plan, p_np, dtype):
+        """Positions, box, globals and data on the card in ``dtype``."""
+        t = lambda x: torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+        return (t(p_np), t(plan.box0), t(plan.global_defaults),
+                engine_mod.plan_data(plan, device=dev, dtype=dtype))
+
+    t0 = time.time()
+    configs = []
+    for method in GENERIC_METHODS:
+        system, force, _, _ = build_system(nbt, method)
+        configs.append((f"rigid {method}", plan_mod.build_plan(force, system),
+                        pos_np))
+    for method in ("PME", "LJPME"):
+        out = build_solute_system(nbt, pos_np, box_len, method)
+        configs.append((f"solute {method}",
+                        plan_mod.build_plan(out[1], out[0]), out[2]))
+    print(f"generic: {len(configs)} plans built in {time.time() - t0:.1f} s")
+
+    # ---- full width through the kernel route, against float64 on the card
+    reset_launches()
+    evaluated = {}
+    by_mode = {run: dict.fromkeys(launches(), 0)
+               for run in ("generic", "generic_rf")}
+    for label, plan, p_np in configs:
+        compute = engine_mod.make_compute(plan, True, True, with_aux=True)
+        pc = generic_pair_config(plan)
+        check(compute.route == "pallas",
+              f"generic {label}: make_compute takes the kernel route "
+              f"({compute.route}); cells {pc.counts} x {pc.capacity} "
+              f"slots, nsub {pc.nsub}, emax {pc.emax}, "
+              f"{'Ewald' if pc.mode else 'reaction-field'} mode"
+              + (", LJPME" if pc.ljpme else ""))
+        args32 = inputs(plan, p_np, f32)
+        before = launches()
+        t0 = time.time()
+        e32, g32, aux = compute(*args32)
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in launches().items()
+                if v != before[k]}
+        key = "pair_cell_ljpme_energies" if pc.ljpme else "pair_cell_energies"
+        check(made == {key: 1}, f"generic {label}: one call launched {made} "
+              f"({time.time() - t0:.1f} s): {key} once, nothing else")
+        run = ("generic_rf" if pc.mode == cuda_direct.MODE_REACTION_FIELD
+               else "generic")
+        for k, v in made.items():
+            by_mode[run][k] += v
+        check(int(aux["overflow"]) == 0 and float(aux["excl_span"]) < 1.0,
+              f"generic {label}: overflow {int(aux['overflow'])} == 0, "
+              f"excluded pairs span {float(aux['excl_span']):.4f} < 1 cell")
+        before = launches()
+        t0 = time.time()
+        e64, g64, _ = compute(*inputs(plan, p_np, f64))
+        torch.cuda.synchronize()
+        check(launches() == before,
+              f"generic {label}: float64 takes the cell engine and "
+              f"corrections, no kernel ({time.time() - t0:.1f} s)")
+        skip = None
+        if pc.mode == cuda_direct.MODE_REACTION_FIELD:
+            # the reaction-field force jumps at the cutoff by
+            # k qi qj (1/rc^2 - 2 krf rc): a pair within float32's reach of
+            # it may lie on either side in float32 and float64
+            _, tensors, _ = kernel_direct.cell_slots(
+                args32[0], *params_mod.particle_params(args32[3], args32[2]),
+                args32[3]["subsets"], args32[3]["exclusion_list"], args32[1],
+                pc.counts, pc.capacity)
+            skip, per_atom = near_cutoff_atoms(
+                tensors[0], tensors[3], args32[1], plan.cutoff,
+                plan.num_particles, pc.counts, 1e-6)
+            qmax = float(np.abs(plan.base_params[:, 0]).max())
+            jump = per_atom * ONE_4PI_EPS0 * qmax * qmax * abs(
+                plan.cutoff ** -2 - 2.0 * pc.krf * plan.cutoff) + 0.1
+            print(f"generic {label}: {int(skip.sum())} atoms with a pair "
+                  f"within 1e-6 nm of the cutoff (at most {per_atom} an "
+                  f"atom); the force jump there is at most {jump:.3f} "
+                  f"kJ/mol/nm")
+        skipped_err = card_gates(f"generic {label}", plan, (e32, g32),
+                                 (e64, g64), plan.global_defaults, skip)
+        if skip is not None:
+            check(skipped_err <= jump,
+                  f"generic {label}: atoms at the cutoff within the jump, "
+                  f"max|dF| {skipped_err:.3e} <= {jump:.3f}")
+        evaluated[label] = dict(compute=compute, plan=plan, pc=pc,
+                                args32=args32, out32=(e32, g32))
+    total = launches()
+    check(all(total[k] == by_mode["generic"][k] + by_mode["generic_rf"][k]
+              for k in total),
+          "generic: every launch of the run falls to one mode")
+    for run, counted in by_mode.items():
+        run_launches[run] = counted
+        print(f"{run}: launches "
+              f"{ {k: v for k, v in counted.items() if v} }")
+        check_launches(run, run, counted)
+
+    # ---- pair_cell at the generic shapes against its plain twin
+    for name, label in (("pair_cell_energies_generic_rf", "rigid CutoffPeriodic"),
+                        ("pair_cell_energies_generic", "rigid PME"),
+                        ("pair_cell_ljpme_energies_generic", "rigid LJPME")):
+        ev = evaluated[label]
+        plan, pc, (pos, box, gvals, data) = ev["plan"], ev["pc"], ev["args32"]
+        charge, sig_half, eps2 = params_mod.particle_params(data, gvals)
+        _, tensors, _ = kernel_direct.cell_slots(
+            pos, charge, sig_half, eps2, data["subsets"],
+            data["exclusion_list"], box, pc.counts, pc.capacity)
+        lam = params_mod.slice_lambdas(plan.lam_source, gvals)
+        sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64,
+                                 device=dev)
+        args = (*tensors, lam[:, 0][sl_tab].contiguous(),
+                lam[:, 1][sl_tab].contiguous(), box, pc, True,
+                plan.num_particles)
+        results[name] = pair_kernel_check(
+            f"{name} ({label})", cuda_direct.pair_cell,
+            cuda_direct.pair_cell_plain, args, pc, reps, cell_kernel=True)
+        n_pair, n_excl = pair_counts(tensors[0], tensors[3], tensors[4], box,
+                                     plan.cutoff, plan.num_particles,
+                                     pc.counts)
+        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
+            pc, True, n_pair, n_excl, cell_kernel=True)
+        print(f"{name}: {n_pair} pairs within the cutoff, {n_excl} excluded "
+              f"pairs; bound {results[name]['bound_ms']:.6f} ms "
+              f"({results[name]['bound_by']})")
+
+    # ---- one make_compute call per method, and pair_cell's share of it
+    for label, ev in evaluated.items():
+        compute, pc, args32 = ev["compute"], ev["pc"], ev["args32"]
+        ms = call_ms(lambda: compute(*args32))
+        pos, box, gvals, data = args32
+        charge, sig_half, eps2 = params_mod.particle_params(data, gvals)
+        _, tensors, _ = kernel_direct.cell_slots(
+            pos, charge, sig_half, eps2, data["subsets"],
+            data["exclusion_list"], box, pc.counts, pc.capacity)
+        lam_nn = torch.ones((pc.nsub, pc.nsub), device=dev)
+        kernel_ms = cuda_ms(lambda: cuda_direct.pair_cell(
+            *tensors, lam_nn, lam_nn, box, pc, True,
+            ev["plan"].num_particles), reps)
+        print(f"generic {label}: make_compute {ms:.3f} ms a call (median of "
+              f"{GENERIC_REPS}, CUDA events around each call), pair_cell "
+              f"{kernel_ms:.4f} ms of it ({kernel_ms / ms:.1%}) "
+              f"({ev['plan'].num_particles} atoms, {card})")
+
+    # ---- the generic engine against the fused engine (B4 against B1), on
+    # the fused engine's PME grid (the plan's aligned to its bricks)
+    apply, state, cfg, (pos, box, gvals, data) = fused
+    e_f, f_f, _ = apply(pos, box, gvals, data, state)
+    ev = evaluated["rigid PME"]
+    plan_f = dataclasses.replace(ev["plan"], pme_grid=cfg["pme_grid"],
+                                 pme_moduli=cfg["pme_moduli"])
+    out = engine_mod.make_compute(plan_f, True, True)(pos, box, gvals, data)
+    card_gates(f"generic against fused (rigid PME on the {cfg['pme_grid']} "
+               f"grid, both f32)", plan_f, out, (e_f, f_f),
+               plan_f.global_defaults, names=("generic", "fused"))
+
+    # ---- split switches: direct only + reciprocal only = one call
+    plan, args32 = ev["plan"], ev["args32"]
+    e_d, f_d = engine_mod.make_compute(plan, True, False)(*args32)
+    e_r, f_r = engine_mod.make_compute(plan, False, True)(*args32)
+    e_a, f_a = ev["out32"]
+    e_err = float((e_d + e_r - e_a).abs().max()) / float(e_a.abs().max())
+    f_err = float((f_d + f_r - f_a).abs().max()) / float(f_a.abs().max())
+    check(e_err <= TOL_SPLIT and f_err <= TOL_SPLIT,
+          f"generic split switches (rigid PME): slice energies {e_err:.3e}, "
+          f"forces {f_err:.3e} of their max <= {TOL_SPLIT}")
+
+    # ---- all pairs: NoCutoff and CutoffNonPeriodic on a drop of water
+    waters = cluster_waters(pos_np, box_len, CLUSTER_NM)
+    reset_launches()
+    for method in ("NoCutoff", "CutoffNonPeriodic"):
+        out = build_solute_system(nbt, waters, box_len, method)
+        plan = plan_mod.build_plan(out[1], out[0])
+        compute = engine_mod.make_compute(plan, True, True, with_aux=True)
+        check(compute.route == "all_pairs",
+              f"generic drop {method}: {plan.num_particles} atoms (the chain "
+              f"and the waters within {CLUSTER_NM} nm of it), all pairs")
+        args32 = inputs(plan, out[2], f32)
+        r32 = compute(*args32)
+        r64 = compute(*inputs(plan, out[2], f64))
+        skip = None
+        if method == "CutoffNonPeriodic":
+            # the reaction-field force jumps at the cutoff (phase 11 above)
+            pos = args32[0].double()
+            r = torch.cdist(pos, pos)
+            skip = ((r - plan.cutoff).abs() < 1e-6).any(dim=1)
+            print(f"generic drop {method}: {int(skip.sum())} atoms with a "
+                  f"pair within 1e-6 nm of the cutoff")
+        # the chain's dE/dlambda_elec sums some 30,000 chain-water pair
+        # energies of either sign to a few kJ/mol: their float32 rounding
+        # leaves 1e-5 to 1e-4 kJ/mol
+        skipped_err = card_gates(f"generic drop {method}", plan, r32[:2],
+                                 r64[:2], plan.global_defaults, skip,
+                                 deriv_floor=DROP_DERIV_FLOOR)
+        if skip is not None:
+            check(skipped_err <= DROP_JUMP,
+                  f"generic drop {method}: atoms at the cutoff within the "
+                  f"jump, max|dF| {skipped_err:.3e} <= {DROP_JUMP}")
+        ms = call_ms(lambda: compute(*args32))
+        print(f"generic drop {method}: make_compute {ms:.3f} ms a call "
+              f"({plan.num_particles} atoms, {card})")
+    check(not any(launches().values()),
+          "generic drop: no hand-written kernel on the all-pairs route")
 
 
 def main():
@@ -1606,12 +1975,24 @@ def main():
     graph_against_eager(
         "graph", make_bench_run, capacity,
         torch.as_tensor(pos_np, device=dev).to(f32),
-        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data, 0.0,
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         reset_launches, card)
     graph_against_eager(
         "solute graph", make_solute_run, s_capacity, s_pos,
         torch.as_tensor(s_vel_np, device=dev).to(f32), box, s_gvals, s_data,
-        TOL_GRAPH_SOLUTE, reset_launches, card)
+        reset_launches, card)
+    # the paths that only LJPME (the C6 pass) and the window pipeline
+    # (brick-major slots, the window kernels) run, to the bit
+    graph_against_eager(
+        "ljpme graph", make_ljpme_run, capacity,
+        torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, l_data,
+        reset_launches, card)
+    graph_against_eager(
+        "grid graph", make_grid_run, capacity,
+        torch.as_tensor(pos_np, device=dev).to(f32),
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
+        reset_launches, card)
 
     # ---- 10. mixed precision at full width, and the NVE pair
     def make_mixed_run(cap, reuse, mixed=True):
@@ -1650,6 +2031,12 @@ def main():
     check(abs(drift["mixed"]) < abs(drift["single"]),
           f"nve: mixed drifts less than single ({drift['mixed']:.2f} "
           f"against {drift['single']:.2f} kJ/mol/ps)")
+
+    # ---- 11. the generic engine: make_compute at full width
+    t0 = time.time()
+    generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
+                   box_len, (apply, st, cfg, (pos, box, gvals, data)), reps)
+    print(f"generic engine: {time.time() - t0:.1f} s")
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -53,7 +53,7 @@ using namespace nbs_pair;
 // exact test of phase 2 passes.
 constexpr float kWiden = 1.00001f;
 
-template <bool ENERGIES, bool LJPME>
+template <bool ENERGIES, bool LJPME, bool WIDE>
 __global__ void __launch_bounds__(32 * kWarps, 2)
 pair_column_kernel(const float* __restrict__ pos,
                    const float* __restrict__ par,
@@ -74,7 +74,7 @@ pair_column_kernel(const float* __restrict__ pos,
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
-    int* const my_excl = s.excl + warp * kMaxExclusions;
+    int* const my_excl = s.excl + warp * p.emax;
     float* const my_panel = s.moments + warp * 2 * nsub * nsub;
     const float cutoff2_wide = kWiden * p.cutoff2;
 
@@ -92,7 +92,8 @@ pair_column_kernel(const float* __restrict__ pos,
                 if (o0 == 0) zero_row(forces, cell, t, C);
                 continue;
             }
-            const Row row = load_row(pos, par, sub, excl, my_excl, cell, t, p);
+            const Row row =
+                load_row<WIDE>(pos, par, sub, excl, my_excl, cell, t, p);
             const int self = kHome << 10 | t;   // the row among the staged
             const float row_c6 = LJPME ? c6_of(row.sig, row.eps) : 0.f;
             Sums acc;
@@ -194,16 +195,25 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
     if (!shapes_ok(capacity, nsub, emax, mode, ljpme)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const LaunchShape g = launch_shape(capacity, nsub, false, energies != 0);
+    const LaunchShape g =
+        launch_shape(capacity, nsub, emax, false, energies != 0);
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
                  n_real, g.row_blocks, g.tile_cells, g.cand_stride,
                  cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke,
                  dispersion_alpha, inv_cut6, disp_cut};
-    auto kernel = energies
-        ? (ljpme ? pair_column_kernel<true, true>
-                 : pair_column_kernel<true, false>)
-        : (ljpme ? pair_column_kernel<false, true>
-                 : pair_column_kernel<false, false>);
+    // [energies][ljpme][a list longer than a warp]
+    using Kernel = decltype(&pair_column_kernel<false, false, false>);
+    static const Kernel kernels[8] = {
+        pair_column_kernel<false, false, false>,
+        pair_column_kernel<false, false, true>,
+        pair_column_kernel<false, true, false>,
+        pair_column_kernel<false, true, true>,
+        pair_column_kernel<true, false, false>,
+        pair_column_kernel<true, false, true>,
+        pair_column_kernel<true, true, false>,
+        pair_column_kernel<true, true, true>};
+    const Kernel kernel = kernels[4 * (energies != 0) + 2 * (ljpme != 0)
+                                  + (emax > kWarpList)];
     return launch_rows(
         kernel, g, ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
         static_cast<const float*>(pos), static_cast<const float*>(par),
@@ -223,7 +233,7 @@ extern "C" int nbs_pair_launch_shape(int capacity, int nsub, int emax,
     if (!shapes_ok(capacity, nsub, emax, kModeEwald)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const LaunchShape g = launch_shape(capacity, nsub, cell_kernel != 0,
+    const LaunchShape g = launch_shape(capacity, nsub, emax, cell_kernel != 0,
                                        energies != 0);
     int* o = static_cast<int*>(out);
     o[0] = g.row_blocks;

@@ -5,7 +5,8 @@
 //
 // LJPME is a template flag of both kernels (and of pair_terms): the PME and
 // reaction-field instantiations compile to the code they had without it,
-// and only the LJPME ones pay for the dispersion term's registers.
+// and only the LJPME ones pay for the dispersion term's registers.  WIDE
+// is one too: exclusion lists longer than a warp's 32 lanes (load_row).
 //
 // The skeleton.  A block owns the rows chunk, chunk + row_blocks, ... of one
 // home cell; each of its warps takes every nwarps-th of them, one row atom
@@ -46,7 +47,10 @@
 namespace nbs_pair {
 
 constexpr int kMaxSubsets = 8;
-constexpr int kMaxExclusions = 16;
+// (the row's exclusion list, kWarps * emax words of shared memory; lists
+// longer than a warp's 32 lanes take the kernels' WIDE variants)
+constexpr int kMaxExclusions = 256;
+constexpr int kWarpList = 32;
 constexpr int kMaxCapacity = 1024;
 constexpr int kModeReactionField = 0;
 constexpr int kModeEwald = 1;
@@ -84,8 +88,8 @@ struct LaunchShape {
     int row_blocks, threads, tile_cells, cand_stride, shmem;
 };
 
-inline LaunchShape launch_shape(int capacity, int nsub, bool stage_ids,
-                                bool energies) {
+inline LaunchShape launch_shape(int capacity, int nsub, int emax,
+                                bool stage_ids, bool energies) {
     LaunchShape g;
     g.threads = 32 * kWarps;
     g.row_blocks = (capacity + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -95,7 +99,7 @@ inline LaunchShape launch_shape(int capacity, int nsub, bool stage_ids,
     g.cand_stride = (g.tile_cells * capacity + kStride - 1) / kStride * kStride;
     const int words = fields * g.cand_stride + g.cand_stride / 2
                       + 2 * nsub * nsub + 5 * kNeighbours + 4
-                      + kWarps * (kQueue / 2 + kMaxExclusions)
+                      + kWarps * (kQueue / 2 + emax)
                       + (energies ? kWarps * 2 * nsub * nsub : 0);
     g.shmem = 4 * words;
     return g;
@@ -113,7 +117,7 @@ struct Shared {
     int* ncell;           // [27] the home cell's neighbour cells
     float* shift;         // [27][3] their periodic image shifts
     unsigned short* queue;   // [warps][kQueue]
-    int* excl;            // [warps][kMaxExclusions] the row's exclusions
+    int* excl;            // [warps][emax] the row's exclusions
     float* moments;       // [warps][2][nsub][nsub], with energies
 };
 
@@ -136,7 +140,7 @@ __device__ __forceinline__ Shared carve(float* smem, const PairParams& p,
     s.frame = reinterpret_cast<float*>(s.count + kNeighbours);
     s.excl = reinterpret_cast<int*>(s.frame + 4);
     s.queue = reinterpret_cast<unsigned short*>(
-        s.excl + kWarps * kMaxExclusions);
+        s.excl + kWarps * p.emax);
     s.moments = reinterpret_cast<float*>(s.queue + kWarps * kQueue);
     return s;
 }
@@ -433,7 +437,10 @@ struct Row {
 
 // Loads row slot t of `cell` and its exclusion list (into `excl`, the
 // warp's list in shared memory; nex reaches the last entry that names an
-// atom, and a -1 before it matches no candidate).
+// atom, and a -1 before it matches no candidate).  One load a lane takes a
+// list of up to 32 entries; WIDE, for longer lists, loops over the rest
+// (a template flag: the loop cost B4 with energies 3.5% where it never ran).
+template <bool WIDE>
 __device__ __forceinline__ Row load_row(const float* __restrict__ pos,
                                         const float* __restrict__ par,
                                         const int* __restrict__ sub,
@@ -452,10 +459,26 @@ __device__ __forceinline__ Row load_row(const float* __restrict__ pos,
     r.sub = sub[cell * C + t];
     const int e = lane < p.emax ? excl_g[(cell * p.emax + lane) * C + t] : -1;
     __syncwarp();        // the previous row's batches have read the list
-    if (lane < kMaxExclusions) excl[lane] = e;
-    r.nex = 32 - __clz(__ballot_sync(kFullMask, e >= 0));
-    const int smallest = __reduce_min_sync(kFullMask, e >= 0 ? e : INT_MAX);
-    const int largest = __reduce_max_sync(kFullMask, e);
+    if (lane < p.emax) excl[lane] = e;
+    unsigned named = __ballot_sync(kFullMask, e >= 0);
+    int nex = 32 - __clz(named);
+    int smallest = __reduce_min_sync(kFullMask, e >= 0 ? e : INT_MAX);
+    int largest = __reduce_max_sync(kFullMask, e);
+    if constexpr (WIDE) {
+        // a list wider than a warp: the rest, 32 entries at a time
+        for (int e0 = 32; e0 < p.emax; e0 += 32) {
+            const int k = e0 + lane;
+            const int ek =
+                k < p.emax ? excl_g[(cell * p.emax + k) * C + t] : -1;
+            if (k < p.emax) excl[k] = ek;
+            named = __ballot_sync(kFullMask, ek >= 0);
+            if (named) nex = e0 + 32 - __clz(named);
+            smallest = min(smallest, __reduce_min_sync(
+                                         kFullMask, ek >= 0 ? ek : INT_MAX));
+            largest = max(largest, __reduce_max_sync(kFullMask, ek));
+        }
+    }
+    r.nex = nex;
     // (an empty list: no id has id - INT_MIN == 0)
     r.ex_min = r.nex ? smallest : INT_MIN;
     r.ex_span = r.nex ? unsigned(largest) - unsigned(smallest) : 0u;

@@ -6,9 +6,10 @@
 * Exclusion corrections subtract the reciprocal-space part of excluded pairs:
   -erf(alpha*r)*k*qq/r with a Taylor-safe branch when erf(alpha*r) <= 1e-6
   (ReferenceSlicedLJCoulombIxn.cpp:447-507) and, under LJPME, add back the
-  pair's reciprocal dispersion term where erf(alpha*r) > 1e-6.  The port
-  covers the rigid-water layout (contiguous exclusion triangles) of the
-  fused engine.
+  pair's reciprocal dispersion term where erf(alpha*r) > 1e-6: for any
+  list of excluded pairs (``exclusion_corrections``, the generic engine's)
+  and for the rigid-water layout of the fused engine (contiguous exclusion
+  triangles, ``exclusion_corrections_rows``).
 
 Slice energies accumulate in float64; forces stay in the working dtype.
 """
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import ONE_4PI_EPS0, SQRT_PI, TWO_OVER_SQRT_PI
+from ..utils.indexing import incidence_sums, pair_incidence
 from .cuda_direct import dispersion_terms
 from .geometry import min_image
 
@@ -29,11 +31,9 @@ def nb14_interactions(positions, box, atoms, sigma, four_eps, qq, slice_ids,
     """1-4 exception terms -> (slice_energies (S, 2) f64, forces (N, 3))."""
     dtype = positions.dtype
     dev = positions.device
-    slice_energies = torch.zeros((num_slices, 2), dtype=torch.float64,
-                                 device=dev)
-    forces = torch.zeros((num_particles, 3), dtype=dtype, device=dev)
     if atoms.shape[0] == 0:
-        return slice_energies, forces
+        return (torch.zeros((num_slices, 2), dtype=torch.float64, device=dev),
+                torch.zeros((num_particles, 3), dtype=dtype, device=dev))
     i = atoms[:, 0]
     j = atoms[:, 1]
     dr = positions[i] - positions[j]
@@ -52,11 +52,78 @@ def nb14_interactions(positions, box, atoms, sigma, four_eps, qq, slice_ids,
     f = dedr[:, None] * dr
     e_vdw = four_eps * (sig6 - 1.0) * sig6
     e_coul = ONE_4PI_EPS0 * qq * rinv
-    slice_energies[:, 0].index_add_(0, slice_ids, e_coul.to(torch.float64))
-    slice_energies[:, 1].index_add_(0, slice_ids, e_vdw.to(torch.float64))
-    forces.index_add_(0, i, f)
-    forces.index_add_(0, j, -f)
-    return slice_energies, forces
+    return (_slice_sums(slice_ids, e_coul, e_vdw, num_slices),
+            _pair_sums(atoms, f, num_particles))
+
+
+def _pair_sums(pairs, f, n):
+    """(n, 3) sums of +f on the first atom of every pair (P, 2) and -f on
+    the second, each atom's terms added in a fixed order through the
+    pairs' incidence table (``utils.indexing.pair_incidence``), so the
+    result repeats to the bit (``index_add_`` adds with float atomics on
+    CUDA)."""
+    targets, table = pair_incidence(pairs, n)
+    out = torch.zeros((n, 3), dtype=f.dtype, device=f.device)
+    return out.index_copy_(0, targets,
+                           incidence_sums(torch.cat([f, -f]), table))
+
+
+def _slice_sums(slice_ids, e_coul, e_vdw, num_slices):
+    """(S, 2) float64 per-slice sums of Coulomb and vdW energies (``e_vdw``
+    None: zeros), contracted with the slices' one-hot matrix as the self
+    energy is (a fixed order, no atomics)."""
+    terms = torch.stack([e_coul, torch.zeros_like(e_coul) if e_vdw is None
+                         else e_vdw], dim=1).to(torch.float64)
+    onehot = torch.nn.functional.one_hot(slice_ids.long(), num_slices)
+    return onehot.to(torch.float64).T @ terms
+
+
+def exclusion_corrections(positions, box, pairs, charge, sig_half, eps2,
+                          subsets, slice_table, lam_coul_s, lam_vdw_s, *,
+                          alpha, periodic_exceptions, ljpme, dispersion_alpha,
+                          num_slices, num_particles):
+    """Subtract the reciprocal-space part of every excluded pair ``pairs``
+    (E, 2) (the JAX package's ``bonded.py:61-131``): -erf(alpha r) k qq / r,
+    or its limit -2 alpha k qq / sqrt(pi) where erf(alpha r) <= 1e-6; under
+    LJPME add back the pair's reciprocal dispersion term.  Deltas are
+    minimum images when ``periodic_exceptions``.
+    Returns (slice_energies (S, 2) f64, forces (N, 3))."""
+    dtype, dev = positions.dtype, positions.device
+    if pairs.shape[0] == 0:
+        return (torch.zeros((num_slices, 2), dtype=torch.float64, device=dev),
+                torch.zeros((num_particles, 3), dtype=dtype, device=dev))
+    i = pairs[:, 0].long()
+    j = pairs[:, 1].long()
+    dr = positions[i] - positions[j]
+    if periodic_exceptions:
+        dr = min_image(dr, box)
+    r2 = torch.sum(dr * dr, dim=-1)
+    r = torch.where(r2 > 0, torch.sqrt(torch.where(r2 > 0, r2, 1.0)), 0.0)
+    alpha_r = alpha * r
+    erf_ar = torch.erf(alpha_r)
+    big = erf_ar > 1e-6   # Taylor-safe branch (ReferenceSlicedLJCoulombIxn.cpp:468)
+    rinv = 1.0 / torch.where(big, r, 1.0)
+    qq = charge[i] * charge[j]
+    sl_tab = torch.as_tensor(slice_table, dtype=torch.int64, device=dev)
+    sl = sl_tab[subsets[i].long(), subsets[j].long()]
+    e_coul = torch.where(big, -ONE_4PI_EPS0 * qq * rinv * erf_ar,
+                         -alpha * TWO_OVER_SQRT_PI * ONE_4PI_EPS0 * qq)
+    dedr = torch.where(
+        big, ONE_4PI_EPS0 * qq * rinv ** 3
+        * (erf_ar - 2.0 * alpha_r * torch.exp(-alpha_r * alpha_r) / SQRT_PI),
+        0.0)
+    # the reference subtracts: forces[i] -= lam*dedr*dr (cpp:473-478)
+    f = -(lam_coul_s[sl] * dedr)[:, None] * dr
+    e_vdw = None
+    if ljpme:
+        # back out the reciprocal dispersion of excluded pairs (cpp:487-504)
+        c6ij = (8.0 * sig_half[i] ** 3 * eps2[i]) * (8.0 * sig_half[j] ** 3
+                                                     * eps2[j])
+        e_vdw, dedr_v = dispersion_terms(c6ij, r, rinv, dispersion_alpha)
+        e_vdw = torch.where(big, e_vdw, 0.0)
+        f = f + (lam_vdw_s[sl] * torch.where(big, dedr_v, 0.0))[:, None] * dr
+    return (_slice_sums(sl, e_coul, e_vdw, num_slices),
+            _pair_sums(pairs, f, num_particles))
 
 
 def triangle_exclusions(pairs, num_particles):

@@ -21,7 +21,9 @@ switch the shifted total is what is switched.
   assignment, each neighbour cell shifted by its periodic image, pad slots
   moved far away (``ops/fused.py`` padfix).
 * ``pair_cell`` (``csrc/pair_cell.cu``) ports ``make_pallas_cell_kernel`` as
-  the fused engine builds it for general exclusions under PME: raw
+  the fused engine builds it for general exclusions under PME, and as the
+  generic engine's cell-list direct space builds it
+  (``ops/kernel_direct.py``, reaction field or Ewald mode): raw
   positions with minimum image per pair, a real-slot mask (atom index <
   ``n_real``), and the Ewald exclusion corrections of every excluded pair
   in the 27-cell neighbourhood fused in (unwrapped deltas unless
@@ -83,7 +85,7 @@ MODE_EWALD = 1
 # limits of the CUDA kernels (csrc/pair_common.cuh: register accumulators,
 # the row's exclusion list in shared memory, the staged tile)
 MAX_SUBSETS = 8
-MAX_EXCLUSIONS = 16
+MAX_EXCLUSIONS = 256
 MAX_CAPACITY = 1024
 
 # launches of the CUDA kernels by variant:
@@ -360,9 +362,14 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_fits(nsub, emax, capacity):
+    """Whether the CUDA kernels take a call of this shape."""
+    return (nsub <= MAX_SUBSETS and emax <= MAX_EXCLUSIONS
+            and capacity <= MAX_CAPACITY)
+
+
 def _check_limits(entry, cfg):
-    if (cfg.nsub > MAX_SUBSETS or cfg.emax > MAX_EXCLUSIONS
-            or cfg.capacity > MAX_CAPACITY):
+    if not kernel_fits(cfg.nsub, cfg.emax, cfg.capacity):
         raise ValueError(
             f"{entry}: the CUDA kernel takes at most {MAX_SUBSETS} "
             f"subsets, {MAX_EXCLUSIONS} exclusions per atom and "
@@ -458,3 +465,4 @@ def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
     return _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
                    slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
                    True)
+

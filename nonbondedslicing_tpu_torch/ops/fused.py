@@ -34,8 +34,9 @@ Validity conditions (enforced by callers via aux + static checks):
 * aux["maxdisp2"] <= (skin/2)^2, skin = min cell width - cutoff, capped at
   two grid spacings of the PME grid and (LJPME) of the dispersion grid
 * aux["excl_span"] < 1 on the cell kernel's path: every excluded pair lies
-  within one cell width per axis (minimum image), so that the kernel, which
-  corrects the excluded pairs of the 27-cell neighbourhood, meets it
+  within one cell width per axis (``neighbors.exclusion_span``), so that
+  the kernel, which corrects the excluded pairs of the 27-cell
+  neighbourhood, meets it
 * runtime box == plan.box0: the cell grid and the PME convolution kernels
   are built once from it
 
@@ -50,7 +51,7 @@ from ..models.force import NonbondedForce
 from ..utils.constants import COUL, EPSILON0, ONE_4PI_EPS0, SQRT_PI, VDW
 from ..utils.indexing import slice_subsets
 from . import bonded, cuda_direct, cuda_pme, neighbors, params, pme, pme_bricks
-from .geometry import box_volume, min_image, recip_box_vectors
+from .geometry import box_volume, recip_box_vectors
 
 
 def _brick_counts(counts, capacity=None, raw_grid=None):
@@ -193,11 +194,10 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     # periodic image shift) by a wide margin
     pad_base = 64.0 * (1.0 + float(np.sum(np.abs(np.asarray(plan.box0)))))
     # the cell kernel corrects the excluded pairs of the 27-cell
-    # neighbourhood only: their minimum-image span is measured against the
-    # cell widths (the JAX Context's refusal, models/context.py:366-392)
+    # neighbourhood only: their minimum-image span is measured in cell
+    # widths (the JAX Context's refusal, models/context.py:366-392)
     excl_pairs = np.asarray(plan.exclusion_pairs,
                             dtype=np.int64).reshape(-1, 2)
-    inv_width = np.asarray(counts) / neighbors._perpendicular_widths(plan.box0)
     # the whole-grid spread's slot groups (cells, or the window pipeline's
     # bricks) and its neighbour radius on each PME grid
     lattice = bricks if use_windows else counts
@@ -217,8 +217,7 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 lam_src=torch.as_tensor(plan.lam_source, dtype=torch.int64,
                                         device=dev),
                 excl_i=torch.as_tensor(excl_pairs[:, 0], device=dev),
-                excl_j=torch.as_tensor(excl_pairs[:, 1], device=dev),
-                inv_width=torch.as_tensor(inv_width, device=dev))
+                excl_j=torch.as_tensor(excl_pairs[:, 1], device=dev))
         return index_cache[dev]
 
     def _eterm(box, dispersion=False):
@@ -255,14 +254,9 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
             frac0 = positions @ recip_box_vectors(box)
             pos0w = positions - torch.floor(frac0) @ box
 
-        par = torch.stack([charge, sig_half, eps2], dim=1)
-        par_p = torch.cat([par, par.new_zeros((1, 3))])
-        slot_par = par_p[slots].reshape(n_cells, capacity, 3).transpose(1, 2)
-        sub_p = torch.cat([subsets, subsets.new_zeros(1)])
-        slot_sub = sub_p[slots].reshape(n_cells, capacity).to(torch.int32)
-        excl_p = torch.cat([data["exclusion_list"],
-                            data["exclusion_list"].new_full((1, emax), -1)])
-        sexcl = excl_p[slots].reshape(n_cells, capacity, emax).transpose(1, 2)
+        slot_par, slot_sub, sexcl = neighbors.gather_slots(
+            slots, torch.stack([charge, sig_half, eps2], dim=1), subsets,
+            data["exclusion_list"], n_cells, capacity)
         # inverse slot map: atom -> its (unique) slot, so the per-step
         # slot->atom force unsort is a gather.  Pad slots all map to the
         # dropped entry n; an atom lost to a cell overflow reads slot 0,
@@ -279,9 +273,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
             0.0).to(dtype).reshape(n_cells, 1, capacity)
         state = dict(
             slots=slots, inv_slots=inv_slots[:n], table=table,
-            slot_par=slot_par.contiguous(),
-            slot_q=slot_par[:, 0].contiguous(),
-            slot_sub=slot_sub, sexcl=sexcl.to(torch.int32).contiguous(),
+            slot_par=slot_par, slot_q=slot_par[:, 0].contiguous(),
+            slot_sub=slot_sub, sexcl=sexcl,
             padfix3=torch.cat([padfix, padfix.new_zeros(
                 (n_cells, 2, capacity))], dim=1),
             pos0=positions, pos0w=pos0w, charge=charge, sig_half=sig_half,
@@ -298,12 +291,8 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                         state[key][:, None], counts, bricks)[:, 0].contiguous()
         if use_cell:
             idx = _indices(dev)
-            span = torch.zeros((), dtype=torch.float64, device=dev)
-            if excl_pairs.shape[0]:
-                dr = min_image(positions[idx["excl_i"]]
-                               - positions[idx["excl_j"]], box)
-                span = torch.max(dr.abs() * idx["inv_width"])
-            state["excl_span"] = span
+            state["excl_span"] = neighbors.exclusion_span(
+                positions, box, idx["excl_i"], idx["excl_j"], counts)
         if is_pme and not use_cell:
             sl_tab = _indices(dev)["sl_tab"]
             sub3 = subsets.reshape(n // 3, 3)

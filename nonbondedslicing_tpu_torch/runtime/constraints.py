@@ -292,9 +292,35 @@ class GatherConstrainer:
             host["im_i"] = host["im_i"] * mask
             host["im_j"] = host["im_j"] * mask
         self._host = host
-        self._index = dict(i=i_idx, j=j_idx,
-                           flat=np.concatenate([i_idx.reshape(-1),
-                                                j_idx.reshape(-1)]))
+        # each cluster's atoms (in the order they first appear; a cluster
+        # names each atom once and no atom lies in two clusters) and the
+        # map from its constraints' corrections to them, P[m, a, k] =
+        # invM_a (+1 if atom a is constraint k's i, -1 if its j): an atom's
+        # correction is a sum over its own cluster in a fixed order, and
+        # each atom receives one add
+        live = (np.ones((m, width)) if mask is None
+                else np.asarray(mask).reshape(m, width)) != 0
+        members = [list(dict.fromkeys(
+            a for k in range(width) if live[c, k]
+            for a in (i_idx[c, k], j_idx[c, k]))) for c in range(m)]
+        size = max(1, max(len(a) for a in members))
+        atoms = np.full((m, size), -1, dtype=np.int64)
+        P = np.zeros((m, size, width))
+        for c, names in enumerate(members):
+            atoms[c, :len(names)] = names
+            for k in range(width):
+                if live[c, k]:
+                    P[c, names.index(i_idx[c, k]), k] += inv_mass[i_idx[c, k]]
+                    P[c, names.index(j_idx[c, k]), k] -= inv_mass[j_idx[c, k]]
+        flat = atoms.reshape(-1)
+        named = np.nonzero(flat >= 0)[0]
+        if np.unique(flat[named]).size != named.size:
+            raise ValueError("GatherConstrainer: an atom lies in two "
+                             "constraint clusters")
+        host["P"] = P
+        self._index = dict(i=i_idx, j=j_idx, atoms=flat[named])
+        if named.size != flat.size:
+            self._index["named"] = named
         self._cache = {}
 
     def _consts(self, like):
@@ -325,10 +351,14 @@ class GatherConstrainer:
 
     def _scatter(self, c, x, lam, r_dir):
         """x - invM * sum_k lam_k r_dir_k on both atoms of every pair."""
-        d_i = lam[..., None] * r_dir * c["im_i"][..., None]     # (M, C, 3)
-        d_j = -lam[..., None] * r_dir * c["im_j"][..., None]
-        delta = torch.cat([d_i.reshape(-1, 3), d_j.reshape(-1, 3)])
-        return x.index_add(0, c["flat"], -delta)
+        # (a broadcast product and a sum: cuBLAS's batched product of the
+        # many 3 x 3 blocks took 16 us a call on an H100)
+        w = lam[..., None] * r_dir                              # (M, C, 3)
+        delta = torch.sum(c["P"][..., None] * w[:, None], dim=2)
+        delta = delta.reshape(-1, 3)
+        if "named" in c:
+            delta = delta[c["named"]]
+        return x.index_add(0, c["atoms"], delta, alpha=-1)
 
     def project_positions(self, pos_ref, pos_new):
         """Iteratively restore |r_ij| = d along the reference directions."""

@@ -7,7 +7,8 @@ such as the JAX package's, passed in as ``api``).
   scaling parameters, PME (cutoff 0.9 nm, Ewald tolerance 5e-4).
 * ``build_solute_system``: a flexible 12-site united-atom chain in a cavity
   of a rigid-water box, decoupled by lambda_elec / lambda_vdw, with harmonic
-  bonds.
+  bonds.  With ``cluster_waters`` it builds the chain in a drop of the
+  waters around it, for the non-periodic methods.
 
 Both take ``method``, the name of the nonbonded method: "PME" (the
 default) or "LJPME", which adds the dispersion Ewald sum with the same
@@ -181,6 +182,21 @@ def build_solute_system(api, water_positions, box_len, method="PME"):
                              np.tile(WATER_MASSES, n_kept)])
     return (system, force, positions, masses, (c_pairs, c_dists),
             np.asarray(bonds, dtype=np.float64), kept)
+
+
+def cluster_waters(water_positions, box_len, radius):
+    """The waters of the cubic box ``box_len`` with an atom within
+    ``radius`` of a site of the chain at the box centre (minimum image),
+    each moved by whole box vectors next to the chain: a drop of water
+    around it for ``build_solute_system`` under NoCutoff or
+    CutoffNonPeriodic (3 sites per molecule, as given)."""
+    chain = zigzag_chain(np.full(3, 0.5 * box_len))
+    waters = np.asarray(water_positions, dtype=np.float64).reshape(-1, 3, 3)
+    shift = box_len * np.round((waters[:, :1] - chain.mean(axis=0))
+                               / box_len)
+    waters = waters - shift
+    d = np.linalg.norm(waters[:, :, None, :] - chain[None, None], axis=-1)
+    return waters[d.min(axis=(1, 2)) < radius].reshape(-1, 3)
 
 
 def solute_velocities(water_velocities, kept):

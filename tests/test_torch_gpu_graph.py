@@ -2,12 +2,12 @@
 
 ``make_md_step`` runs every K-step window on CUDA tensors as a replay of a
 captured CUDA graph; ``run.eager`` runs the same body without it.  On the
-benchmark's rigid-water box (23,289 atoms, pair_column, SETTLE) the two
-give positions and velocities equal to the bit, and energies within 1e-12
-relative (the exclusion rows' float64 ``index_add_`` of the final
-evaluation may sum in another order); on the solute box (pair_cell, bonds,
-M-SHAKE, whose ``index_add`` sites use float atomics) positions within
-1e-5 nm.  Marked ``gpu``; they skip (from inside the fixture) where no CUDA
+benchmark's rigid-water box (23,289 atoms, pair_column, SETTLE; under PME,
+under LJPME and through pme_pipeline="grid") and on the solute box
+(pair_cell, bonds, M-SHAKE) the two give positions and velocities equal
+to the bit, and energies within 1e-12 relative (the exclusion rows'
+float64 ``index_add_`` of the final evaluation may sum in another order).
+Marked ``gpu``; they skip (from inside the fixture) where no CUDA
 device is present.  On a machine with an H100:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_graph.py
@@ -98,6 +98,48 @@ def test_graph_equals_eager_rigid(rigid):
     assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
 
 
+def _graph_equals_eager(run, s):
+    """Two windows from the state one captured window reaches, replayed
+    and through the eager body: positions and velocities to the bit, the
+    same launches counted; returns the launches of the replays."""
+    K = run.config["reuse_steps"]
+    assert run.config["graph"]
+    p, v, _ = run(*_args(s), K)
+    before = _launches()
+    p_g, v_g, e_g = run(*_args(s, p, v), 2 * K)
+    made_g = _made(before)
+    before = _launches()
+    p_e, v_e, e_e = run.eager(*_args(s, p, v), 2 * K)
+    assert made_g == _made(before) and run.stats["replays"] == 2
+    assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+    return made_g
+
+
+def test_graph_equals_eager_ljpme(rigid):
+    """The rigid box under LJPME (the C6 pass of B2 and B3, B1's
+    dispersion terms, the rows' back-out): the graph against the eager
+    body to the bit."""
+    system, force, _, _ = build_system(nbt, "LJPME")
+    plan = tplan.build_plan(force, system)
+    s = dict(rigid, plan=plan,
+             data=tengine.plan_data(plan, device=rigid["pos"].device,
+                                    dtype=torch.float32))
+    made = _graph_equals_eager(_rigid_run(s), s)
+    # one C6 spread per evaluation: every step and the final one
+    assert made["pme_spread_dispersion"] == (
+        made["pair_column_ljpme"] + made["pair_column_ljpme_energies"]) > 0
+
+
+def test_graph_equals_eager_grid(rigid):
+    """The rigid box through pme_pipeline="grid" (brick-major slots, the
+    four window kernels): the graph against the eager body to the bit."""
+    made = _graph_equals_eager(_rigid_run(rigid, pme_pipeline="grid"), rigid)
+    # one fold per evaluation: every step and the final one
+    assert made["pme_fold"] == (made["pair_column"]
+                                + made["pair_column_energies"]) > 0
+
+
 def test_graph_launch_counts_per_replay(rigid):
     """A capture counts nothing; each replay adds the kernels of one
     window, and a run of n windows counts what the eager body does."""
@@ -165,8 +207,9 @@ def test_graph_mixed_precision(rigid):
 
 def test_graph_solute_within_tolerance(cuda):
     """The solute box (pair_cell, bonds, the gather constrainer): the
-    graph against the eager body over two windows, positions within 1e-5
-    nm (float atomics in the bonds' and M-SHAKE's index_add)."""
+    graph against the eager body over two windows, positions and
+    velocities to the bit (the bonds, the 1-4s and M-SHAKE sum each atom's
+    terms in a fixed order, without atomics)."""
     _, _, box_len, _ = build_system(nbt)
     blob = np.load(STATE_FILE)
     (system, force, pos_np, masses, constraints, bonds,
@@ -191,5 +234,5 @@ def test_graph_solute_within_tolerance(cuda):
     p_e, v_e, e_e = run.eager(*args, 2 * K)
     assert made_g == _made(before) and made_g["pair_cell"] == 2 * K
     assert run.stats["replays"] == 2
-    assert float((p_g - p_e).abs().max()) <= 1e-5
-    assert abs(float(e_g) - float(e_e)) <= 1e-5 * abs(float(e_e))
+    assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))

@@ -561,6 +561,49 @@ def test_fused_engine_on_card_matches_cpu_f64(cuda, method):
     assert float((f_g.cpu().double() - f_c).abs().max()) <= 5e-5 * f_c_max
 
 
+@pytest.mark.parametrize("method", ["PME", "CutoffPeriodic"])
+def test_make_compute_kernel_route_on_card(cuda, method):
+    """The generic engine's kernel route (pair_cell on a slot table built
+    per call, Ewald or reaction-field mode) in float32 on the card against
+    the same make_compute in float64 on the card (the plain cell list and
+    the generic exclusion corrections): total energy 1e-5 relative, forces
+    5e-5 of max|F|.  Under the reaction field the force jumps at the
+    cutoff, so atoms with a pair within 1e-6 nm of it are left out of the
+    force check."""
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    plan, positions = _water(method=getattr(nbt.SlicedNonbondedForce, method))
+    compute = tengine.make_compute(plan, True, True, with_aux=True)
+    assert compute.route == "pallas"
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        before = dict(cuda_direct.LAUNCHES)
+        out[dtype] = compute(
+            torch.as_tensor(positions, device=cuda).to(dtype),
+            torch.as_tensor(np.asarray(plan.box0), device=cuda).to(dtype),
+            torch.tensor([0.7], device=cuda, dtype=dtype),
+            tengine.plan_data(plan, device=cuda, dtype=dtype))
+        made = {k: v - before[k] for k, v in cuda_direct.LAUNCHES.items()
+                if v != before[k]}
+        assert made == ({"pair_cell_energies": 1} if dtype == torch.float32
+                        else {})
+    (e_g, f_g, aux), (e_c, f_c, _) = out[torch.float32], out[torch.float64]
+    assert int(aux["overflow"]) == 0 and float(aux["excl_span"]) < 1.0
+    lam_s = slice_lambdas(plan.lam_source,
+                          torch.tensor([0.7], dtype=torch.float64))
+    E_g = float(tengine.contract_energy(e_g.cpu(), lam_s))
+    E_c = float(tengine.contract_energy(e_c.cpu(), lam_s))
+    assert abs(E_g - E_c) <= 1e-5 * abs(E_c)
+    keep = np.ones(len(positions), dtype=bool)
+    if method == "CutoffPeriodic":
+        box = np.diag(plan.box0)
+        d = positions[:, None] - positions[None]
+        d -= box * np.round(d / box)
+        near = np.abs(np.linalg.norm(d, axis=-1) - plan.cutoff) < 1e-6
+        keep = ~near.any(axis=1)
+    err = (f_g.double() - f_c).abs().max(dim=1).values.cpu().numpy()
+    assert err[keep].max() <= 5e-5 * float(f_c.abs().max())
+
+
 # ------------------------------------------------ the window PME pipeline
 
 # (cells, bricks, grid, nsub, atoms, cell capacity): one cell per brick; 8

@@ -46,6 +46,11 @@ PAIR_CASES = {
                    emax=2, group=3, use_switch=True),
     "reaction_field": dict(seed=46, cells=(3, 3, 3), capacity=68, n=780,
                            nsub=3, emax=4, group=3, reaction_field=True),
+    # every atom excludes 40 others: lists wider than a warp, which the
+    # kernels load 32 entries at a time (groups of 41, 0.1 nm apart)
+    "wide_exclusions": dict(seed=52, cells=(3, 3, 3), capacity=96,
+                            n=41 * 12, nsub=3, emax=40, group=41,
+                            spacing=0.1),
     # a cutoff so close to the cell width (0.8 nm, a third of the box) that
     # the cell kernel's blocks whose atoms span their whole cell cannot
     # take one frame of images for the block, and others can
@@ -113,7 +118,8 @@ def _positions(case, box, rng):
                                  indexing="ij"), -1).reshape(-1, 3)
     sites = sites[rng.permutation(len(sites))[:n_groups]]
     frac = (sites + 0.5 + rng.uniform(-0.2, 0.2, sites.shape)) / per_axis
-    member = np.stack(np.unravel_index(np.arange(group), (3, 3, 2)), -1)
+    member = np.stack(np.unravel_index(
+        np.arange(group), (3, 3, 2) if group <= 18 else (4, 4, 3)), -1)
     pos = ((frac @ box)[:, None, :]
            + case.get("spacing", 0.03) * member[None, :, :])
     return pos.reshape(-1, 3)[:n]

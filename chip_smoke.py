@@ -100,7 +100,40 @@ the last line:
    against B1, both float32) with the same gates; direct space alone plus
    the reciprocal part alone against one call; NoCutoff and
    CutoffNonPeriodic (all pairs, no kernel) on a drop of the solute box
-   (the chain and the waters within 1.5 nm of it), float32 against float64.
+   (the chain and the waters within 1.5 nm of it), float32 against float64;
+12. the user API (``nbt.Context``, ``VerletIntegrator``, ``Platform``):
+   (a) the rigid box through ``Context(system, VerletIntegrator(0.002),
+   Platform.getPlatformByName("CUDA"))``, SETTLE from the System's
+   constraints, and make_md_step with the Context's K and capacity from
+   the same state: a warm-up step(200) and chunk of each, then eight timed
+   step(200) calls and eight chunks in turns (Context first in every other
+   round); the Context's one MD step captures in the warm-up and never
+   after, the two trajectories equal to the bit, ms/step of both;
+   (e) a checkpoint, 200 steps, the checkpoint loaded and the same 200
+   steps again, equal to the bit; (d) setParameter and
+   updateParametersInContext (a charge) keep the graph and the data
+   tensors, the next 200 steps equal to the bit those of a Context built
+   with the new parameters from the same state, and the energy and
+   dE/dlambda equal to its own to 1e-6 (the atom-space PME's float
+   atomics); (b) the solute box through a Context (HarmonicBondForce,
+   water constraints) with phase 6's gates; (c) getState on both boxes,
+   float32 (K3 on the kernel route) against Precision double on the card
+   with phase 4's gates (atoms with a pair within 1e-6 nm of the cutoff
+   held to the force jump there), and with the reciprocal part in its own
+   force group direct plus reciprocal equal to the total; (f) bare Ewald
+   (25,326 half-space vectors) through the fused MD step: the fused
+   evaluation against make_compute in float64, the column kernel in Ewald
+   mode against its twin, one warm-up and three timed chunks with phase
+   5's checks, phase 9's graph against eager; (g) the per-step rebuild: a
+   cube of the state's whole waters at its density (port_systems
+   .water_cube: the waters with their oxygen in a 2.6 nm cube, less those
+   that overlap across its faces, moved into a 2.52 nm box: 1,596 atoms),
+   2 cells of the cutoff per axis, through the Context: its route (all
+   pairs, the atom-space PME, no hand-written kernel) and its graph, 20 x
+   100 steps with the velocities rescaled to 300 K by each chunk's mean
+   temperature (the cut's faces relax), then 200 timed steps and 200
+   sampled every 25 steps, with phase 5's gates (the temperature the mean
+   of the samples), and the evaluation against float64.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -131,10 +164,13 @@ must equal it to the bit.
 
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
-"solute", "rigid_ljpme", "solute_ljpme" or "generic"): launches in that
-path's run (the MD runs of phases 5, 6, 7 and 8; the solute box's
-evaluations of phases 7 and 8; phase 11's six float32 evaluations), max
-abs error against the plain
+"solute", "rigid_ljpme", "solute_ljpme", "generic", "context",
+"context_solute", "ewald" or "getstate"): launches in that path's run
+(the MD runs of phases 5, 6, 7 and 8; the solute box's evaluations of
+phases 7 and 8; phase 11's six float32 evaluations; phase 12's step()
+calls of both Contexts, the bare-Ewald MD and the float32 getState
+calls; the per-step rebuild launches no hand-written kernel and has no
+entry), max abs error against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
 operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
 tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
@@ -155,8 +191,9 @@ import numpy as np
 
 from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
                           SOLUTE_SITES, STATE_FILE, WATER_MASSES,
-                          build_solute_system, build_system, cluster_waters,
-                          max_cell_occupancy, solute_velocities)
+                          add_bonds, add_constraints, build_solute_system,
+                          build_system, cluster_waters, max_cell_occupancy,
+                          solute_velocities, water_cube, water_system)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
@@ -201,6 +238,14 @@ DROP_DERIV_FLOOR = 2 * DROP_DERIV_ROUNDING / TOL_EVAL_DERIV   # 24 kJ/mol
 DROP_JUMP = 2.5           # kJ/mol/nm: the reaction-field force jump of one
                           # pair at the cutoff (two oxygens: 2.24)
 GENERIC_REPS = 5          # timed make_compute calls per method
+CONTEXT_TIMED_CHUNKS = 3  # phase 12: step() chunks after a warm-up chunk
+CONTEXT_ALTERNATED_CHUNKS = 8   # phase 12 (a): timed chunks of the Context
+                                # and of make_md_step, in turns
+EWALD_TIMED_CHUNKS = 3
+CUBE_NM = 2.6             # the per-step rebuild's cut: a 2.52 nm box at
+                          # the state's density, 2 cells of 0.9 nm
+CUBE_EQUILIBRATION = 20   # 100-step chunks, velocities rescaled to 300 K,
+                          # before a timed chunk and a sampled one without
 
 # the bound: peaks of one H100 SXM (NVIDIA's data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12           # FP32 outside the tensor cores
@@ -293,9 +338,22 @@ ENTRIES = (
      "generic"),
     ("pair_cell_ljpme_energies_generic", "pair_cell_ljpme_energies",
      "generic", "generic"),
+) + tuple((k + "_context", k, "context", "context")
+          for k in ("pair_column", "pair_column_energies", "pme_spread",
+                    "pme_spread_energies", "pme_interp")) + tuple(
+    (k + "_context_solute", k, "context_solute", "context_solute")
+    for k in ("pair_cell", "pair_cell_energies", "pme_spread",
+              "pme_spread_energies", "pme_interp")) + (
+    ("pair_column_ewald", "pair_column", "ewald", "ewald"),
+    ("pair_column_energies_ewald", "pair_column_energies", "ewald", "ewald"),
+    ("pair_cell_energies_getstate", "pair_cell_energies", "getstate",
+     "getstate"),
 )
 # the kernels each run must launch; it must launch no other ("generic":
-# phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode)
+# phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode;
+# phase 12: "context" and "context_solute" the step() calls of a Context on
+# either box, "ewald" bare Ewald's MD, "getstate" the float32 getState
+# calls, K3; "simple" the per-step rebuild's steps, which launch none)
 RUN_KERNELS = {
     "generic": {"pair_cell_energies", "pair_cell_ljpme_energies"},
     "generic_rf": {"pair_cell_energies"},
@@ -313,7 +371,12 @@ RUN_KERNELS = {
     "solute_ljpme": {"pair_cell_ljpme", "pair_cell_ljpme_energies",
                      "pme_spread", "pme_spread_energies", "pme_interp",
                      *DISPERSION_KERNELS},
+    "ewald": {"pair_column", "pair_column_energies"},
+    "getstate": {"pair_cell_energies"},
+    "simple": set(),
 }
+RUN_KERNELS["context"] = RUN_KERNELS["rigid"]
+RUN_KERNELS["context_solute"] = RUN_KERNELS["solute"]
 
 
 class SmokeFailure(RuntimeError):
@@ -965,7 +1028,9 @@ def window_kernel_checks(suffix, slot_pos, st, box, cfg, plan, lam_c_nn,
           f"the two grids agree to {rel:.3e} <= {TOL_GRID_SUM} (no point "
           f"dropped)")
     kw = dict(grid_shape=grid_shape, eterm=eterm,
-              slice_subset_pairs=slice_subsets(nsub), energies=False)
+              slice_subset_pairs=torch.as_tensor(slice_subsets(nsub),
+                                                 device=box.device),
+              energies=False)
     _, f_s = cuda_pme.pme_reciprocal(slot_pos, st["slot_q"], st["slot_sub"],
                                      box, lam_c_nn, **kw, **stencil_kw)
     f_w = [pme_bricks.bricks_to_cells(cuda_pme.pme_reciprocal(
@@ -1114,10 +1179,10 @@ def launch_report(label, chunks, launches, pair):
 
 
 def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
-              n_atoms, card):
-    """Energy finite, water constraints, temperature; prints the median and
-    range of ms/step and ns/day of the timed chunks and returns their sorted
-    ms/step."""
+              n_atoms, card, temp=None):
+    """Energy finite, water constraints, temperature (of ``v``, or ``temp``
+    where given); prints the median and range of ms/step and ns/day of the
+    timed chunks and returns their sorted ms/step."""
     e_md = float(energy)
     check(math.isfinite(e_md), f"{label}: energy {e_md:.3f} kJ/mol is finite")
     p64 = p.double().cpu().numpy()[first_water:].reshape(-1, 3, 3)
@@ -1128,8 +1193,9 @@ def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
     check(c_err <= TOL_CONSTRAINT,
           f"{label}: max |constraint distance - target| {c_err:.3e} nm <= "
           f"{TOL_CONSTRAINT}")
-    v64 = v.double().cpu().numpy()
-    temp = float(np.sum(masses[:, None] * v64 * v64)) / (KB * n_dof)
+    if temp is None:
+        v64 = v.double().cpu().numpy()
+        temp = float(np.sum(masses[:, None] * v64 * v64)) / (KB * n_dof)
     check(270.0 <= temp <= 330.0,
           f"{label}: temperature {temp:.1f} K in 300 +- 30")
     ms = sorted(1000.0 * t / CHUNK_STEPS for t in chunk_s[1:])
@@ -1255,7 +1321,7 @@ def card_gates(label, plan, out32, out64, gvals_np, skip_atoms=None,
              f" ({int(skip_atoms.sum())} atoms at the cutoff left out)"))
     check(rel_d <= TOL_EVAL_DERIV,
           f"{label}: relative dE/dlambda error {rel_d:.3e} <= "
-          f"{TOL_EVAL_DERIV} (denominator at least {deriv_floor} kJ/mol)")
+          f"{TOL_EVAL_DERIV} (denominator at least 1 kJ/mol)")
     return skipped_err
 
 
@@ -1332,6 +1398,35 @@ def generic_pair_config(plan):
         exceptions_periodic=bool(plan.exceptions_periodic),
         ljpme=plan.method == NonbondedForce.LJPME,
         dispersion_alpha=plan.dispersion_alpha)
+
+
+def generic_pair_check(name, plan, args32, reps, dev):
+    """``pair_cell`` with energies at the generic engine's shapes (its slot
+    table of the float32 inputs ``args32``: positions, box, globals and
+    data on the card) against its plain twin, with its bound."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, kernel_direct
+    from nonbondedslicing_tpu_torch.ops import params as params_mod
+    pc = generic_pair_config(plan)
+    pos, box, gvals, data = args32
+    charge, sig_half, eps2 = params_mod.particle_params(data, gvals)
+    _, tensors, _ = kernel_direct.cell_slots(
+        pos, charge, sig_half, eps2, data["subsets"], data["exclusion_list"],
+        box, pc.counts, pc.capacity)
+    lam = params_mod.slice_lambdas(plan.lam_source, gvals)
+    sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64, device=dev)
+    args = (*tensors, lam[:, 0][sl_tab].contiguous(),
+            lam[:, 1][sl_tab].contiguous(), box, pc, True, plan.num_particles)
+    out = pair_kernel_check(name, cuda_direct.pair_cell,
+                            cuda_direct.pair_cell_plain, args, pc, reps,
+                            cell_kernel=True)
+    n_pair, n_excl = pair_counts(tensors[0], tensors[3], tensors[4], box,
+                                 plan.cutoff, plan.num_particles, pc.counts)
+    out["bound_ms"], out["bound_by"] = pair_bound(pc, True, n_pair, n_excl,
+                                                  cell_kernel=True)
+    print(f"{name}: {n_pair} pairs within the cutoff, {n_excl} excluded "
+          f"pairs; bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
 
 
 def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
@@ -1451,28 +1546,8 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
                         ("pair_cell_energies_generic", "rigid PME"),
                         ("pair_cell_ljpme_energies_generic", "rigid LJPME")):
         ev = evaluated[label]
-        plan, pc, (pos, box, gvals, data) = ev["plan"], ev["pc"], ev["args32"]
-        charge, sig_half, eps2 = params_mod.particle_params(data, gvals)
-        _, tensors, _ = kernel_direct.cell_slots(
-            pos, charge, sig_half, eps2, data["subsets"],
-            data["exclusion_list"], box, pc.counts, pc.capacity)
-        lam = params_mod.slice_lambdas(plan.lam_source, gvals)
-        sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64,
-                                 device=dev)
-        args = (*tensors, lam[:, 0][sl_tab].contiguous(),
-                lam[:, 1][sl_tab].contiguous(), box, pc, True,
-                plan.num_particles)
-        results[name] = pair_kernel_check(
-            f"{name} ({label})", cuda_direct.pair_cell,
-            cuda_direct.pair_cell_plain, args, pc, reps, cell_kernel=True)
-        n_pair, n_excl = pair_counts(tensors[0], tensors[3], tensors[4], box,
-                                     plan.cutoff, plan.num_particles,
-                                     pc.counts)
-        results[name]["bound_ms"], results[name]["bound_by"] = pair_bound(
-            pc, True, n_pair, n_excl, cell_kernel=True)
-        print(f"{name}: {n_pair} pairs within the cutoff, {n_excl} excluded "
-              f"pairs; bound {results[name]['bound_ms']:.6f} ms "
-              f"({results[name]['bound_by']})")
+        results[name] = generic_pair_check(f"{name} ({label})", ev["plan"],
+                                           ev["args32"], reps, dev)
 
     # ---- one make_compute call per method, and pair_cell's share of it
     for label, ev in evaluated.items():
@@ -1551,6 +1626,510 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
               f"({plan.num_particles} atoms, {card})")
     check(not any(launches().values()),
           "generic drop: no hand-written kernel on the all-pairs route")
+
+
+def fused_kernel_checks(suffix, plan, capacity, pos, box, gvals, data, reps,
+                        cell_kernel, pme=True):
+    """The fused engine's pair kernel (force-only and energies) and, with
+    ``pme``, its three PME kernels at ``capacity`` slots a cell against
+    their plain twins, at the state ``pos`` (float32 on the card): the
+    kernels-line entries ``<kernel><suffix>`` with their bounds."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    from nonbondedslicing_tpu_torch.runtime.fastpath import DEFAULT_SKIN
+    prepare, _, cfg = fused_mod.make_fused_engine(
+        plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    pc = cfg["pair"]
+    st = prepare(pos, box, gvals, data)
+    check(int(st["overflow"]) == 0,
+          f"{suffix[1:]}: no cell overflow at {pc.capacity} slots a cell")
+    n = plan.num_particles
+    base = pos if cell_kernel else st["pos0w"]
+    slot_pos = (torch.cat([base, base.new_zeros((1, 3))])[st["slots"]]
+                .reshape(pc.n_cells, pc.capacity, 3).transpose(1, 2)
+                + st["padfix3"]).contiguous()
+    lam = slice_lambdas(plan.lam_source, gvals)
+    sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64,
+                             device=pos.device)
+    lam_c_nn = lam[:, 0][sl_tab].contiguous()
+    lam_v_nn = lam[:, 1][sl_tab].contiguous()
+    n_pair, n_excl = pair_counts(slot_pos, st["table"], st["sexcl"], box,
+                                 plan.cutoff, n, pc.counts)
+    print(f"{suffix[1:]}: cells {pc.counts} x {pc.capacity} slots, "
+          f"{n_pair} pairs within the cutoff, {n_excl} excluded pairs")
+    kernel = "pair_cell" if cell_kernel else "pair_column"
+    out = {}
+    for energies in (False, True):
+        name = kernel + ("_energies" if energies else "") + suffix
+        args = (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
+                st["sexcl"], lam_c_nn, lam_v_nn, box, pc, energies, n)
+        out[name] = pair_kernel_check(
+            name, getattr(cuda_direct, kernel),
+            getattr(cuda_direct, kernel + "_plain"), args, pc, reps,
+            cell_kernel=cell_kernel)
+        out[name]["bound_ms"], out[name]["bound_by"] = pair_bound(
+            pc, energies, n_pair, n_excl if cell_kernel else 0,
+            cell_kernel=cell_kernel)
+    if pme:
+        out.update(pme_kernel_checks(
+            tuple(k + suffix for k in ("pme_spread", "pme_spread_energies",
+                                       "pme_interp")),
+            slot_pos, st, box, cfg, plan, lam_c_nn, reps))
+    return out
+
+
+def cutoff_pairs(plan, pos64, box_len, dev, delta=1e-6):
+    """(atoms with a pair whose minimum-image distance lies within
+    ``delta`` of the cutoff, as a bool mask, and the force jump at the
+    cutoff such an atom may see): float32 and float64 may put such a pair
+    on either side.  Under Ewald, PME and LJPME the real-space Coulomb
+    force jumps there by k qi qj (erfc(a rc) / rc^2 + 2 a / sqrt(pi)
+    exp(-(a rc)^2) / rc), 0.38 kJ/mol/nm for two water oxygens at the
+    benchmark's cutoff; 0.1 kJ/mol/nm covers the Lennard-Jones jump and
+    the rest of the error (phase 11's reaction-field exception, with the
+    Ewald-family jump).  Cubic box, pairs in float64 on the card."""
+    import torch
+    from nonbondedslicing_tpu_torch.utils.constants import (ONE_4PI_EPS0,
+                                                            SQRT_PI)
+    pos = torch.as_tensor(np.asarray(pos64), device=dev).double()
+    n = pos.shape[0]
+    hits = torch.zeros(n, dtype=torch.int64, device=dev)
+    for i0 in range(0, n, 1024):
+        d = pos[i0:i0 + 1024, None, :] - pos[None, :, :]
+        d = d - box_len * torch.round(d / box_len)
+        r = torch.sqrt(torch.sum(d * d, dim=-1))
+        hits[i0:i0 + 1024] = ((r - plan.cutoff).abs() < delta).sum(dim=1)
+    rc, a = plan.cutoff, plan.ewald_alpha
+    qmax = float(np.abs(plan.base_params[:, 0]).max())
+    per_pair = ONE_4PI_EPS0 * qmax * qmax * (
+        math.erfc(a * rc) / rc ** 2
+        + 2.0 * a / SQRT_PI * math.exp(-(a * rc) ** 2) / rc)
+    return (hits > 0).cpu().numpy(), int(hits.max()) * per_pair + 0.1
+
+
+def state_gates(label, st32, st64, skip=None, jump=0.0):
+    """Phase 4's gates between two Context states (getState with energy,
+    forces and dE/dlambda): float32 against float64.  ``skip`` (a bool
+    mask, :func:`cutoff_pairs`) holds its atoms to the force ``jump``
+    instead."""
+    e32, e64 = st32.getPotentialEnergy(), st64.getPotentialEnergy()
+    f32 = np.asarray(st32.getForces())
+    f64 = np.asarray(st64.getForces())
+    d32 = st32.getEnergyParameterDerivatives()
+    d64 = st64.getEnergyParameterDerivatives()
+    rel_e = abs(e32 - e64) / abs(e64)
+    fmax = float(np.abs(f64).max())
+    df = np.abs(f32 - f64).max(axis=1)
+    skipped = 0.0
+    if skip is not None and skip.any():
+        skipped = float(df[skip].max())
+        df = np.where(skip, 0.0, df)
+    f_err = float(df.max()) / fmax
+    rel_d = max([abs(d32[k] - d64[k]) / max(abs(d64[k]), 1.0)
+                 for k in d64] + [0.0])
+    worst = int(df.argmax())
+    print(f"{label}: E single {e32:.6f}, double {e64:.6f} kJ/mol; "
+          f"dE/dlambda single {d32}, double {d64}; max|F| {fmax:.1f}; "
+          f"largest force error on atom {worst}: {f32[worst].tolist()} "
+          f"against {f64[worst].tolist()}")
+    check(math.isfinite(e32) and rel_e <= TOL_EVAL_ENERGY,
+          f"{label}: relative energy error {rel_e:.3e} <= {TOL_EVAL_ENERGY}")
+    check(f_err <= TOL_EVAL_FORCE,
+          f"{label}: force error {f_err:.3e} of max|F| <= {TOL_EVAL_FORCE}"
+          + ("" if skip is None else
+             f" ({int(skip.sum())} atoms with a pair within 1e-6 nm of the "
+             f"cutoff left out)"))
+    if skip is not None and skip.any():
+        check(skipped <= jump,
+              f"{label}: atoms at the cutoff within the jump, max|dF| "
+              f"{skipped:.3e} <= {jump:.3f}")
+    check(rel_d <= TOL_EVAL_DERIV,
+          f"{label}: relative dE/dlambda error {rel_d:.3e} <= "
+          f"{TOL_EVAL_DERIV} (denominator at least 1 kJ/mol)")
+
+
+def ctx_arrays(ctx):
+    """A Context's positions and velocities as float64 tensors."""
+    import torch
+    st = ctx.getState(getPositions=True, getVelocities=True)
+    return (torch.as_tensor(np.asarray(st.getPositions())),
+            torch.as_tensor(np.asarray(st.getVelocities())))
+
+
+def full_state(ctx, **kw):
+    return ctx.getState(getEnergy=True, getForces=True,
+                        getParameterDerivatives=True, **kw)
+
+
+def only_run(ctx, force):
+    """The one make_md_step run a Context's step() calls built."""
+    runs = ctx._compiled[id(force)].md[DT_PS]["runs"]
+    check(len(runs) == 1, f"context: one MD step built ({list(runs)})")
+    return next(iter(runs.values()))
+
+
+def context_md(label, ctx, force, masses, first_water, n_waters, card,
+               reset_launches, launches, other=None,
+               n_timed=CONTEXT_TIMED_CHUNKS):
+    """A warm-up and ``n_timed`` timed step(CHUNK_STEPS) calls of a Context
+    on the card, counted: its one MD step replays the graph it captured in
+    the warm-up and captures none after it, the force-only pair kernel runs
+    once a step and its energies variant once a call; phase 5's MD gates.
+    ``other`` (a callable) runs one CHUNK_STEPS chunk of the same MD by
+    another way: it follows each Context chunk, and the timed rounds run
+    the two in turns, Context first in the even rounds and ``other`` first
+    in the odd ones, each timed and counted apart.  Returns (its run, the
+    Context's launches, sorted ms/step of the Context and of ``other``)."""
+    import torch
+    integrator = ctx.getIntegrator()
+    n = len(masses)
+    reset_launches()
+    made = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    def context_chunk():
+        before = launches()
+        chunk_s.append(timed(lambda: integrator.step(CHUNK_STEPS)))
+        for key, value in launches().items():
+            made[key] = made.get(key, 0) + value - before.get(key, 0)
+
+    chunk_s, other_s = [], []
+    for i in range(1 + n_timed):
+        if other is not None and i % 2 == 1:
+            other_s.append(timed(other))
+        context_chunk()
+        if other is not None and i % 2 == 0:
+            other_s.append(timed(other))
+        if i == 0:
+            run = only_run(ctx, force)
+            captured = run.stats["captures"]
+    print(f"{label}: config {run.config}; graph {run.stats}; warm-up "
+          f"{chunk_s[0]:.2f} s, timed {[round(t, 3) for t in chunk_s[1:]]} "
+          f"s; launches { {k: v for k, v in made.items() if v} }")
+    check(only_run(ctx, force) is run and run.config["graph"]
+          and run.stats["captures"] == captured,
+          f"{label}: no capture after the warm-up ({captured} in it, "
+          f"{run.stats['replays']} replays)")
+    pair = "pair_cell" if first_water else "pair_column"
+    steps = (1 + n_timed) * CHUNK_STEPS
+    check(made[pair] == steps and made[pair + "_energies"] == 1 + n_timed,
+          f"{label}: {pair} launched once a step ({made[pair]} in "
+          f"{steps}), its energies variant once a step() call")
+    p, v = ctx_arrays(ctx)
+    energy = ctx.getState(getEnergy=True).getPotentialEnergy()
+    ms = md_checks(label, p, v, energy, masses, first_water,
+                   3 * n - 3 * n_waters - 3, chunk_s, n, card)
+    return run, made, ms, sorted(1e3 * t / CHUNK_STEPS for t in other_s[1:])
+
+
+def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
+              vel_np, box_len, capacity, reps):
+    """Phase 12: the user API on the card (see the module docstring)."""
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import ewald
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    from nonbondedslicing_tpu_torch.runtime.fastpath import (DEFAULT_SKIN,
+                                                             SIMPLE_WINDOW,
+                                                             make_md_step)
+    f32 = torch.float32
+    cuda_platform = nbt.Platform.getPlatformByName("CUDA")
+    reference = nbt.Platform.getPlatformByName("Reference")
+
+    def launches():
+        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+
+    def context(system, platform, pos, vel=None, params=None):
+        ctx = nbt.Context(system, nbt.VerletIntegrator(DT_PS), platform)
+        ctx.setPositions(pos)
+        if vel is not None:
+            ctx.setVelocities(vel)
+        for name, value in (params or {}).items():
+            ctx.setParameter(name, value)
+        return ctx
+
+    # ---- (a) the rigid box through the Context, against make_md_step
+    system, force, _, constraints = build_system(nbt)
+    add_constraints(system, constraints)
+    masses = np.tile(WATER_MASSES, N_MOLECULES)
+    n = len(masses)
+    ctx = context(system, cuda_platform, pos_np, vel_np)
+    box = torch.as_tensor(np.diag([box_len] * 3), device=dev).to(f32)
+    gvals = torch.ones(2, device=dev)
+    direct = {"p": torch.as_tensor(pos_np, device=dev).to(f32),
+              "v": torch.as_tensor(vel_np, device=dev).to(f32)}
+
+    def direct_chunk():
+        """One chunk of make_md_step at the Context's K and capacity, from
+        the state the Context started from."""
+        if "run" not in direct:
+            config = only_run(ctx, force).config
+            direct["run"] = make_md_step(
+                ctx._compiled[id(force)].plan, masses, dt=DT_PS, dtype=f32,
+                cell_capacity=config["capacity"],
+                reuse_steps=config["reuse_steps"], constraints=constraints)
+            direct["data"] = engine_mod.plan_data(
+                ctx._compiled[id(force)].plan, device=dev, dtype=f32)
+        direct["p"], direct["v"], _ = direct["run"](
+            direct["p"], direct["v"], box, gvals, direct["data"],
+            CHUNK_STEPS)
+
+    run, made, ms_ctx, ms_direct = context_md(
+        "context md", ctx, force, masses, 0, N_MOLECULES, card,
+        reset_launches, launches, other=direct_chunk,
+        n_timed=CONTEXT_ALTERNATED_CHUNKS)
+    check_launches("context md", "context", made)
+    run_launches["context"] = made
+    K, cap = run.config["reuse_steps"], run.config["capacity"]
+    data = direct["data"]
+    p_ctx, v_ctx = ctx_arrays(ctx)
+    check(torch.equal(direct["p"].double().cpu(), p_ctx)
+          and torch.equal(direct["v"].double().cpu(), v_ctx),
+          f"context md: {(1 + CONTEXT_ALTERNATED_CHUNKS) * CHUNK_STEPS} "
+          f"steps equal to make_md_step's to the bit (K {K}, capacity {cap})")
+    print(f"context md: Context {np.median(ms_ctx):.3f} ms/step (range "
+          f"{ms_ctx[0]:.3f}-{ms_ctx[-1]:.3f}), make_md_step "
+          f"{np.median(ms_direct):.3f} (range {ms_direct[0]:.3f}-"
+          f"{ms_direct[-1]:.3f}), {CONTEXT_ALTERNATED_CHUNKS} chunks each in "
+          f"turns, K {K}, capacity {cap} ({n} atoms, {card})")
+    results.update(fused_kernel_checks(
+        "_context", ctx._compiled[id(force)].plan, cap,
+        torch.as_tensor(pos_np, device=dev).to(f32), box, gvals, data, reps,
+        cell_kernel=False))
+
+    # ---- (e) a checkpoint and the same 200 steps twice
+    blob = ctx.createCheckpoint()
+    ctx.getIntegrator().step(CHUNK_STEPS)
+    first = ctx_arrays(ctx)
+    ctx.loadCheckpoint(blob)
+    ctx.getIntegrator().step(CHUNK_STEPS)
+    again = ctx_arrays(ctx)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"checkpoint: {CHUNK_STEPS} steps from a loaded checkpoint equal "
+          f"the steps from the saved state to the bit ({len(blob)} bytes)")
+
+    # ---- (d) parameters without a new capture
+    comp = ctx._compiled[id(force)]
+    addresses = {k: t.data_ptr() for k, t in comp.data.items()}
+    stats = dict(run.stats)
+    ctx.setParameter("lambda01", 0.5)
+    q, sig, eps = force.getParticleParameters(0)
+    force.setParticleParameters(0, 0.5 * q, sig, eps)
+    force.updateParametersInContext(ctx)
+    saved = ctx_arrays(ctx)
+    ctx.getIntegrator().step(CHUNK_STEPS)
+    check(only_run(ctx, force) is run
+          and run.stats["captures"] == stats["captures"]
+          and run.stats["replays"] > stats["replays"]
+          and {k: t.data_ptr() for k, t in comp.data.items()} == addresses,
+          f"parameters: setParameter and updateParametersInContext keep the "
+          f"graph and the data tensors ({stats} -> {run.stats})")
+    # the graph captured before the update integrates with the new charge
+    # and lambda: the same steps in a Context built with them
+    rebuilt = context(system, cuda_platform, saved[0].numpy(),
+                      saved[1].numpy(), params={"lambda01": 0.5})
+    rebuilt.getIntegrator().step(CHUNK_STEPS)
+    r_run = only_run(rebuilt, force)
+    check(r_run.config["reuse_steps"] == K and r_run.config["capacity"] == cap
+          and all(torch.equal(a, b) for a, b in zip(ctx_arrays(ctx),
+                                                     ctx_arrays(rebuilt))),
+          f"parameters: {CHUNK_STEPS} steps after the update equal to the bit "
+          f"those of a Context built with the new parameters from the same "
+          f"state (K {r_run.config['reuse_steps']}, capacity "
+          f"{r_run.config['capacity']})")
+    st_a, st_b = full_state(ctx), full_state(rebuilt)
+    rel_e = abs(st_a.getPotentialEnergy() - st_b.getPotentialEnergy()) / abs(
+        st_b.getPotentialEnergy())
+    d_a = st_a.getEnergyParameterDerivatives()
+    d_b = st_b.getEnergyParameterDerivatives()
+    rel_d = max(abs(d_a[k] - d_b[k]) / max(abs(d_b[k]), 1.0) for k in d_b)
+    print(f"parameters: E {st_a.getPotentialEnergy():.6f} against the "
+          f"rebuilt Context's {st_b.getPotentialEnergy():.6f} kJ/mol, "
+          f"dE/dlambda {d_a} against {d_b}")
+    check(rel_e <= TOL_SPLIT and rel_d <= TOL_SPLIT,
+          f"parameters: energy {rel_e:.3e} and dE/dlambda {rel_d:.3e} from "
+          f"the rebuilt Context's <= {TOL_SPLIT} (the float atomics of the "
+          f"atom-space PME spread)")
+
+    # ---- (b) the solute box through the Context
+    (s_system, s_force, s_pos_np, s_masses, s_constraints, s_bonds,
+     kept) = build_solute_system(nbt, pos_np, box_len)
+    add_constraints(s_system, s_constraints)
+    add_bonds(nbt, s_system, s_bonds)
+    n_waters = (len(s_masses) - SOLUTE_SITES) // 3
+    s_ctx = context(s_system, cuda_platform, s_pos_np,
+                    solute_velocities(vel_np, kept))
+    s_run, made, _, _ = context_md("context solute md", s_ctx, s_force,
+                                   s_masses, SOLUTE_SITES, n_waters, card,
+                                   reset_launches, launches)
+    check_launches("context solute md", "context_solute", made)
+    run_launches["context_solute"] = made
+    s_comp = s_ctx._compiled[id(s_force)]
+    results.update(fused_kernel_checks(
+        "_context_solute", s_comp.plan, s_run.config["capacity"],
+        torch.as_tensor(s_pos_np, device=dev).to(f32), box,
+        torch.as_tensor(s_comp.plan.global_defaults, device=dev).to(f32),
+        s_comp.data, reps, cell_kernel=True))
+
+    # ---- (c) getState: float32 (K3 on the kernel route) against float64,
+    # with phase 11's exception: atoms with a pair at the cutoff are held
+    # to the force jump there
+    reset_launches()
+    for label, c, f, sys_, params in (
+            ("getState rigid", ctx, force, system, {"lambda01": 0.5}),
+            ("getState solute", s_ctx, s_force, s_system, None)):
+        p_c, _ = ctx_arrays(c)
+        skip, jump = cutoff_pairs(c._compiled[id(f)].plan, p_c.numpy(),
+                                  box_len, dev)
+        print(f"{label}: {int(skip.sum())} atoms with a pair within 1e-6 nm "
+              f"of the cutoff; the force jump there is at most {jump:.3f} "
+              f"kJ/mol/nm")
+        state_gates(label, full_state(c),
+                    full_state(context(sys_, reference, p_c.numpy(),
+                                       params=params)),
+                    skip, jump)
+    # the reciprocal part in its own force group
+    force.setReciprocalSpaceForceGroup(1)
+    ctx.reinitialize(preserveState=True)
+    parts = [full_state(ctx, groups=g) for g in ({0}, {1}, None)]
+    e_d, e_r, e_a = (st.getPotentialEnergy() for st in parts)
+    f_d, f_r, f_a = (np.asarray(st.getForces()) for st in parts)
+    e_err = abs(e_d + e_r - e_a) / abs(e_a)
+    f_err = float(np.abs(f_d + f_r - f_a).max() / np.abs(f_a).max())
+    print(f"getState groups: direct {e_d:.6f} + reciprocal {e_r:.6f} "
+          f"against {e_a:.6f} kJ/mol")
+    check(e_err <= TOL_SPLIT and f_err <= TOL_SPLIT,
+          f"getState groups: direct + reciprocal = total, energy {e_err:.3e},"
+          f" forces {f_err:.3e} of max|F| <= {TOL_SPLIT}")
+    made = launches()
+    print(f"getstate: launches { {k: v for k, v in made.items() if v} }")
+    check_launches("getstate", "getstate", made)
+    run_launches["getstate"] = made
+    comp = ctx._compiled[id(force)]
+    p_c, _ = ctx_arrays(ctx)
+    results["pair_cell_energies_getstate"] = generic_pair_check(
+        "pair_cell_energies_getstate", comp.plan,
+        (p_c.to(dev, f32), box, ctx._gvals(comp), comp.data), reps, dev)
+
+    # ---- (f) bare Ewald through the fused MD step
+    e_system, e_force, _, _ = build_system(nbt, "Ewald")
+    e_plan = plan_mod.build_plan(e_force, e_system)
+    pos = torch.as_tensor(pos_np, device=dev).to(f32)
+    e_data = engine_mod.plan_data(e_plan, device=dev, dtype=f32)
+    prepare, apply, cfg = fused_mod.make_fused_engine(
+        e_plan, cell_capacity=capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    n_kvec = len(ewald.half_space_kvectors(e_plan.ewald_kmax))
+    print(f"ewald: {n_kvec} half-space k-vectors (kmax {e_plan.ewald_kmax}),"
+          f" alpha {e_plan.ewald_alpha:.4f}, "
+          f"cells {cfg['counts']} x {cfg['capacity']}, skin "
+          f"{cfg['skin']:.4f} nm, pair kernel mode {cfg['pair'].mode}")
+    out32 = apply(pos, box, gvals, e_data, prepare(pos, box, gvals, e_data))
+    f64 = torch.float64
+    out64 = engine_mod.make_compute(e_plan, True, True)(
+        pos.to(f64), box.to(f64), gvals.to(f64),
+        engine_mod.plan_data(e_plan, device=dev, dtype=f64))
+    card_gates("ewald evaluation", e_plan, out32[:2], out64,
+               e_plan.global_defaults, names=("fused f32", "generic f64"))
+    results.update(fused_kernel_checks("_ewald", e_plan, capacity, pos, box,
+                                       gvals, e_data, reps,
+                                       cell_kernel=False, pme=False))
+
+    def make_ewald_run(cap, reuse):
+        return make_md_step(e_plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints)
+
+    reset_launches()
+    chunks = Chunks(make_ewald_run, capacity, nbt.OpenMMException)
+    p, v, energy, chunk_s, config = run_md(
+        chunks, pos, torch.as_tensor(vel_np, device=dev).to(f32), box, gvals,
+        e_data, EWALD_TIMED_CHUNKS)
+    made = launches()
+    print(f"ewald md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
+          f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s")
+    check(config["graph"], "ewald md: the K-step windows run as CUDA graphs")
+    check_launches("ewald md", "ewald", made)
+    launch_report("ewald md", chunks, made, "pair_column")
+    md_checks("ewald md", p, v, energy, masses, 0, 3 * n - 3 * N_MOLECULES - 3,
+              chunk_s, n, card)
+    run_launches["ewald"] = made
+    graph_against_eager("ewald graph", make_ewald_run, capacity, pos,
+                        torch.as_tensor(vel_np, device=dev).to(f32), box,
+                        gvals, e_data, reset_launches, card)
+
+    # ---- (g) the per-step rebuild: a cube of fewer than 3 cells per axis
+    c_pos, c_vel, c_edge = water_cube(pos_np, vel_np, box_len, CUBE_NM)
+    c_waters = len(c_pos) // 3
+    c_system, c_force, c_constraints = water_system(nbt, c_waters, c_edge)
+    add_constraints(c_system, c_constraints)
+    c_masses = np.tile(WATER_MASSES, c_waters)
+    c_plan = plan_mod.build_plan(c_force, c_system)
+    check(fused_mod.fused_config(c_plan) is None,
+          f"cube: {len(c_pos)} atoms ({c_waters} whole waters) in a "
+          f"{c_edge:.4f} nm box ({len(c_pos) / c_edge ** 3:.1f} atoms/nm^3), "
+          f"PME grid {c_plan.pme_grid}: no cell grid, so "
+          f"make_md_step takes the per-step rebuild")
+    c_ctx = context(c_system, cuda_platform, c_pos, c_vel)
+    c_dof = 3 * len(c_pos) - 3 * c_waters - 3
+    reset_launches()
+
+    def sampled(chunks):
+        """The mean temperature of ``chunks`` step() calls of one graphed
+        window each, one sample after each: the cube's temperature
+        fluctuates by sqrt(2 / n_dof), 7.5 K, at a sample."""
+        temps = []
+        for _ in range(chunks):
+            c_ctx.getIntegrator().step(SIMPLE_WINDOW)
+            _, v = ctx_arrays(c_ctx)
+            temps.append(float(np.sum(c_masses[:, None] * v.numpy() ** 2))
+                         / (KB * c_dof))
+        return float(np.mean(temps))
+
+    temps = []
+    for _ in range(CUBE_EQUILIBRATION):
+        # the cut's fresh surfaces relax and heat the cube: rescale the
+        # velocities to 300 K by each chunk's mean, as a user equilibrates
+        temp = sampled(100 // SIMPLE_WINDOW)
+        temps.append(round(temp, 1))
+        c_ctx.setVelocities(ctx_arrays(c_ctx)[1].numpy()
+                            * np.sqrt(300.0 / temp))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    c_ctx.getIntegrator().step(CHUNK_STEPS)
+    torch.cuda.synchronize()
+    cube_s = time.time() - t0
+    temp = sampled(CHUNK_STEPS // SIMPLE_WINDOW)
+    made = launches()
+    c_run = only_run(c_ctx, c_force)
+    print(f"cube: mean temperatures of the equilibration chunks {temps} K, "
+          f"of the {CHUNK_STEPS} steps after the timed ones {temp:.1f} K; "
+          f"config {c_run.config}; graph {c_run.stats}")
+    check(c_run.config["route"] == "all_pairs"
+          and c_run.config["reuse_steps"] == 1 and c_run.config["graph"]
+          and c_run.stats["captures"] >= 1 and c_run.stats["replays"] > 0,
+          "cube: the per-step rebuild on all pairs, its windows graphed")
+    check_launches("cube md", "simple", made)
+    p, v = ctx_arrays(c_ctx)
+    md_checks("cube md", p, v, c_ctx.getState(getEnergy=True)
+              .getPotentialEnergy(), c_masses, 0, c_dof, [0.0, cube_s],
+              len(c_pos), card, temp=temp)
+    skip, jump = cutoff_pairs(c_plan, p.numpy(), c_edge, dev)
+    state_gates("getState cube", full_state(c_ctx),
+                full_state(context(c_system, reference, p.numpy())),
+                skip, jump)
 
 
 def main():
@@ -2037,6 +2616,13 @@ def main():
     generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
                    box_len, (apply, st, cfg, (pos, box, gvals, data)), reps)
     print(f"generic engine: {time.time() - t0:.1f} s")
+
+    # ---- 12. the user API: Context, checkpoints, bare Ewald, the per-step
+    # rebuild
+    t0 = time.time()
+    api_phase(dev, card, reset_launches, results, run_launches, pos_np,
+              vel_np, box_len, capacity, reps)
+    print(f"api: {time.time() - t0:.1f} s")
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

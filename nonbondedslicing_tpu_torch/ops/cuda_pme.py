@@ -515,8 +515,10 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
 
     ``eterm`` is the z-half convolution kernel (nx, ny, nz//2+1) in the
     working dtype (``pme.coulomb_eterm_np``); ``lam_nn`` (nsub, nsub) the
-    Coulomb lambda of each subset pair.  ``dispersion=True`` is LJPME's
-    pass: ``slot_q`` holds per-slot C6, ``eterm`` is
+    Coulomb lambda of each subset pair; ``slice_subset_pairs`` the (S, 2)
+    int64 subset pairs of the slices on the device of ``slot_pos``.
+    ``dispersion=True`` is LJPME's pass: ``slot_q`` holds per-slot C6,
+    ``eterm`` is
     ``pme.dispersion_eterm_np``'s, ``lam_nn`` the vdW lambdas and
     ``grid_shape`` the dispersion grid; the kernels count their launches
     under their dispersion names.  ``pipeline`` is ``"stencil"`` (any
@@ -548,7 +550,7 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                           dispersion=dispersion, lattice=lattice,
                           radius=radius)
     spec = torch.fft.rfftn(grid, dim=(1, 2, 3))
-    n_slices = np.asarray(slice_subset_pairs).shape[0]
+    n_slices = slice_subset_pairs.shape[0]
     if energies:
         grid64 = pme_spread(slot_pos, slot_q, slot_sub,
                             recip_box_vectors(box.to(torch.float64)),
@@ -556,8 +558,7 @@ def pme_reciprocal(slot_pos, slot_q, slot_sub, box, lam_nn, *, grid_shape,
                             dispersion=dispersion, lattice=lattice,
                             radius=radius)
         spec64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
-        w = torch.as_tensor(rfft_energy_weights(grid_shape[2]),
-                            dtype=torch.float64, device=dev)
+        w = rfft_energy_weights(grid_shape[2], dev)
         slice_e = pme_slice_energies_ri(spec64.real, spec64.imag,
                                         eterm.to(torch.float64) * w,
                                         slice_subset_pairs)

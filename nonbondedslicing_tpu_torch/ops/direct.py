@@ -56,12 +56,21 @@ def subset_moments(e_masked, oh_i, oh_j, slice_subset_pairs):
     return torch.where(a == b, 0.5 * m[a, a], 0.5 * (m[a, b] + m[b, a]))
 
 
+_SLICE_PAIRS = {}
+
+
 def slice_tables(slice_table, device):
     """(slice table (nsub, nsub), slice -> subset pair (S, 2)) as int64
-    tensors on ``device``."""
+    tensors on ``device``.  The pairs are copied to the device once for
+    each subset count and device, so that a call with ``slice_table``
+    already there copies nothing from the host (and may run inside a CUDA
+    graph's capture)."""
     sl_tab = torch.as_tensor(slice_table, dtype=torch.int64, device=device)
-    spairs = torch.as_tensor(slice_subsets(sl_tab.shape[0]), device=device)
-    return sl_tab, spairs
+    key = (sl_tab.shape[0], sl_tab.device)
+    if key not in _SLICE_PAIRS:
+        _SLICE_PAIRS[key] = torch.as_tensor(slice_subsets(key[0]),
+                                            device=sl_tab.device)
+    return sl_tab, _SLICE_PAIRS[key]
 
 
 def make_pair_terms(*, mode, cutoff=None, krf=0.0, crf=0.0, use_switch=False,

@@ -183,16 +183,26 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
     consts_cache = {}
 
     def consts(dev):
-        """Index tables on ``dev``, copied from the host once."""
+        """Index tables and B-spline moduli on ``dev``, copied from the
+        host once: a call copies nothing from the host after its first,
+        so it may run inside a CUDA graph's capture."""
         if dev not in consts_cache:
+            def moduli(m):
+                return (None if m is None else
+                        tuple(torch.as_tensor(np.asarray(x), device=dev)
+                              for x in m))
             consts_cache[dev] = dict(
                 sl_tab=torch.as_tensor(np.asarray(plan.slice_table),
                                        dtype=torch.int64, device=dev),
+                lam_src=torch.as_tensor(np.asarray(plan.lam_source),
+                                        dtype=torch.int64, device=dev),
                 spairs=torch.as_tensor(slice_pairs, device=dev),
                 diag_ids=torch.as_tensor(
                     [s * (s + 3) // 2 for s in range(nsub)], device=dev),
                 kvec=(None if kvec_ints is None
-                      else torch.as_tensor(kvec_ints, device=dev)))
+                      else torch.as_tensor(kvec_ints, device=dev)),
+                pme_moduli=moduli(plan.pme_moduli),
+                dpme_moduli=moduli(plan.dpme_moduli))
         return consts_cache[dev]
 
     def eterms(dev, dtype):
@@ -220,7 +230,7 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
         c = consts(dev)
         subsets = data["subsets"]
         charge, sig_half, eps2 = params.particle_params(data, gvals)
-        lam = params.slice_lambdas(plan.lam_source, gvals)   # (S, 2)
+        lam = params.slice_lambdas(c["lam_src"], gvals)   # (S, 2)
         lam_c = lam[:, COUL]
         lam_v = lam[:, VDW]
         # per-slice energies accumulate in f64: they carry the ~1e6 kJ/mol
@@ -261,8 +271,8 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
                 eterm0, dterm0 = eterms(dev, dtype)
                 e_k, f_k = pme.pme_reciprocal(
                     positions, box, charge, subsets, lam_c, alpha=alpha,
-                    grid_shape=plan.pme_grid, moduli=plan.pme_moduli,
-                    num_subsets=nsub, slice_subset_pairs=slice_pairs,
+                    grid_shape=plan.pme_grid, moduli=c["pme_moduli"],
+                    num_subsets=nsub, slice_subset_pairs=c["spairs"],
                     slice_table=c["sl_tab"], eterm=eterm0)
                 slice_energies[:, COUL] += e_k
                 forces = forces + f_k
@@ -272,8 +282,8 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
                         positions, box, c6, subsets, lam_v,
                         alpha=plan.dispersion_alpha,
                         grid_shape=plan.dispersion_grid,
-                        moduli=plan.dpme_moduli, num_subsets=nsub,
-                        slice_subset_pairs=slice_pairs,
+                        moduli=c["dpme_moduli"], num_subsets=nsub,
+                        slice_subset_pairs=c["spairs"],
                         slice_table=c["sl_tab"], dispersion=True,
                         eterm=dterm0)
                     slice_energies[:, VDW] += e_d

@@ -39,11 +39,13 @@ def half_space_kvectors(kmax):
 
 def ewald_reciprocal(positions, box, charge, subsets, lam_coul_s, *,
                      kvec_ints, alpha, num_subsets, slice_table,
-                     slice_subset_pairs):
+                     slice_subset_pairs, energies=True):
     """Returns (slice Coulomb energies (S,) float64, forces (N, 3)).
     ``kvec_ints`` is an int64 tensor of :func:`half_space_kvectors` on the
     device of ``positions``; ``slice_table`` and ``slice_subset_pairs``
-    int64 tensors there too."""
+    int64 tensors there too.  ``energies=False`` skips the structure-factor
+    products of the energies and returns None for them (the fused engine's
+    force-only steps)."""
     dtype, dev = positions.dtype, positions.device
     n = positions.shape[0]
     recip_size = 2.0 * math.pi / torch.diagonal(box)
@@ -66,12 +68,15 @@ def ewald_reciprocal(positions, box, charge, subsets, lam_coul_s, *,
         t_im = charge[:, None] * torch.sin(phase)
         s_re = onehot.T @ t_re                                 # (nsub, Kc)
         s_im = onehot.T @ t_im
-        s_re64, s_im64 = s_re.to(torch.float64), s_im.to(torch.float64)
-        a64 = a.to(torch.float64)
-        emat += (s_re64 * a64) @ s_re64.T + (s_im64 * a64) @ s_im64.T
+        if energies:
+            s_re64, s_im64 = s_re.to(torch.float64), s_im.to(torch.float64)
+            a64 = a.to(torch.float64)
+            emat += (s_re64 * a64) @ s_re64.T + (s_im64 * a64) @ s_im64.T
         # f_n += 2 rc ak Im(t_n conj(L_n)) k (cpp:336-345)
         w = t_im * (lam_rows @ s_re) - t_re * (lam_rows @ s_im)
         forces += (w * a) @ kv
+    if not energies:
+        return None, 2.0 * recip_coeff * forces
     pair_i = slice_subset_pairs[:, 0]
     pair_j = slice_subset_pairs[:, 1]
     # the diagonal slices once, the others twice (cpp:347-351)

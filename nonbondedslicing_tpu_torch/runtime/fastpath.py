@@ -22,6 +22,12 @@ checked on the host once per ``run()``, after the steps:
 * the runtime box must equal ``plan.box0``: the cell grid sizing and the
   PME convolution kernels are built once from it
 
+Where the fused engine has no cell grid (no periodic box, or fewer than 3
+cells of one cutoff per axis) the steps rebuild everything every step over
+the generic engine ``ops/engine.make_compute``, the JAX package's
+``_make_md_step_simple``, in graphed windows of :data:`SIMPLE_WINDOW`
+steps; no skin guard applies there.
+
 Optionally adds harmonic bonds (flexible intramolecular geometry) to the
 forces of every step, with the minimum image on the bond vectors when
 ``bonds_periodic``.  ``mixed_precision`` carries the positions in float64
@@ -45,6 +51,8 @@ from ..utils.indexing import incidence_sums, incidence_table
 
 # nm — Verlet-list style cell oversizing for MD reuse (as the JAX package)
 DEFAULT_SKIN = 0.09
+# steps a window of the per-step rebuild path holds (one CUDA graph each)
+SIMPLE_WINDOW = 25
 
 
 def _bond_forces_fn(bonds, n, periodic=False, box=None):
@@ -225,8 +233,8 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
 
     ``mixed_precision=True`` (with ``dtype=torch.float32`` only, as in the
     JAX package; ignored otherwise) carries the positions in float64: each
-    step casts them to float32 for ``prepare``, ``apply`` and the bonds,
-    the kick runs in float32 and the velocities stay float32, and the
+    step casts them to float32 for the force evaluation and the bonds, the
+    kick runs in float32 and the velocities stay float32, and the
     position update, the constraint solve and the velocity from the
     constrained displacement run in float64.  ``run()`` then returns
     float64 positions and float32 velocities.
@@ -240,24 +248,27 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     after the run if the cell capacity overflowed or an atom moved more than
     skin/2 between rebuilds, or, on the min-image cell kernel's path, if an
     excluded pair spans a cell width or more.
+
+    Where the fused engine does not apply (``ops.fused.fused_config`` is
+    None: no periodic box, or fewer than 3 cells of one cutoff per axis),
+    the run is the per-step rebuild of the JAX package's
+    ``_make_md_step_simple`` (its ``fastpath.py:323-375``): every step
+    evaluates the generic engine ``ops.engine.make_compute`` (there all
+    pairs, and Ewald or PME on the atoms), adds the bonds and integrates
+    as above; ``reuse_steps`` is ignored, ``run.config["reuse_steps"]`` is
+    1 and ``run.config["route"]`` names the engine's route.  Its steps run
+    in windows of :data:`SIMPLE_WINDOW` steps, graphed on CUDA tensors as
+    the fused path's are; the atom-space PME spreads with ``index_add_``
+    (float atomics on CUDA), so there a replay equals its eager body only
+    to rounding.  The runtime box may differ from the plan's.
     """
     mixed = bool(mixed_precision) and dtype == torch.float32
     pos_dtype = torch.float64 if mixed else dtype
-    eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
-                                      target_skin=target_skin, energies=False,
-                                      pme_pipeline=pme_pipeline)
-    if eng is None:
-        raise NotImplementedError(
-            "make_md_step: systems without a cell list need the per-step "
-            "rebuild path of the generic engine (ROADMAP A9)")
-    prepare, apply, cfg = eng
-    _, apply_full, _ = fused_mod.make_fused_engine(
-        plan, cell_capacity=cell_capacity, target_skin=target_skin,
-        energies=True, pme_pipeline=pme_pipeline)
     n = plan.num_particles
     m_np = np.asarray(masses, dtype=np.float64)
     inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
-    box0 = np.asarray(plan.box0, dtype=np.float64)
+    box0 = None if plan.box0 is None else np.asarray(plan.box0,
+                                                      dtype=np.float64)
     bond_forces = _bond_forces_fn(bonds, n, periodic=bonds_periodic,
                                   box=box0)
     graph_ok = True
@@ -269,18 +280,6 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         graph_ok = proj_x.__self__.capturable
     else:
         proj_x = proj_v = None
-
-    skin = cfg["skin"]
-    if reuse_steps is None:
-        # steps until the fastest plausible atom covers half the skin: 7
-        # nm/ps for 1 amu hydrogens at 300 K, thermal speeds scale as
-        # 1/sqrt(m) (the JAX package's calibration on the 23k rigid-water
-        # benchmark); the skin guard still checks every run
-        m_min = float(np.min(m_np[m_np > 0])) if np.any(m_np > 0) else 1.0
-        v_ref = 7.0 / np.sqrt(max(m_min, 1.008) / 1.008)
-        reuse_steps = int(0.5 * skin / (dt * v_ref))
-    K = min(25, max(1, int(reuse_steps)))
-    disp_limit2 = (0.5 * skin) ** 2 if K > 1 else np.inf
     device_consts = {}
 
     def consts(dev):
@@ -304,23 +303,82 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         vel_new = proj_v(pos_new, (pos_new - pos) / dt)
         return pos_new, vel_new.to(vel.dtype)
 
-    def window(k, pos, vel, box, gvals, data, acc):
-        """One window: the slot rebuild at ``pos``, then ``k`` steps.
-        Returns (positions, velocities) and takes the guard maxima into
-        ``acc``'s ``ov``, ``dmax`` and ``span`` in place."""
-        inv_m = consts(pos.device)[0]
-        state = prepare(pos.to(dtype), box, gvals, data)
-        for _ in range(k):
-            pos32 = pos.to(dtype)
-            _, forces, aux = apply(pos32, box, gvals, data, state)
-            if bond_forces is not None:
-                forces = forces + bond_forces(pos32)
-            pos, vel = integrate(pos, vel, forces, inv_m)
-            torch.maximum(acc["dmax"], aux["maxdisp2"], out=acc["dmax"])
-        torch.maximum(acc["ov"], state["overflow"], out=acc["ov"])
-        if "excl_span" in state:
-            torch.maximum(acc["span"], state["excl_span"], out=acc["span"])
-        return pos, vel
+    def with_bonds(forces, pos32):
+        return forces if bond_forces is None else forces + bond_forces(pos32)
+
+    eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
+                                      target_skin=target_skin, energies=False,
+                                      pme_pipeline=pme_pipeline)
+    if eng is None:
+        compute = engine_mod.make_compute(plan, True, True,
+                                          cell_capacity=cell_capacity,
+                                          with_aux=True)
+        K = SIMPLE_WINDOW
+        disp_limit2 = np.inf
+        skin = None
+        config = dict(reuse_steps=1, route=compute.route)
+
+        def window(k, pos, vel, box, gvals, data, acc):
+            """``k`` steps, each with its own evaluation of the generic
+            engine; the guard maxima go into ``acc`` in place."""
+            inv_m = consts(pos.device)[0]
+            for _ in range(k):
+                pos32 = pos.to(dtype)
+                _, forces, aux = compute(pos32, box, gvals, data)
+                pos, vel = integrate(pos, vel, with_bonds(forces, pos32),
+                                     inv_m)
+                torch.maximum(acc["ov"], aux["overflow"], out=acc["ov"])
+                if "excl_span" in aux:
+                    torch.maximum(acc["span"], aux["excl_span"],
+                                  out=acc["span"])
+            return pos, vel
+
+        def final(pos32, box, gvals, data):
+            slice_e, _, aux = compute(pos32, box, gvals, data)
+            return slice_e, aux["overflow"], aux.get("excl_span")
+    else:
+        prepare, apply, cfg = eng
+        _, apply_full, _ = fused_mod.make_fused_engine(
+            plan, cell_capacity=cell_capacity, target_skin=target_skin,
+            energies=True, pme_pipeline=pme_pipeline)
+        skin = cfg["skin"]
+        if reuse_steps is None:
+            # steps until the fastest plausible atom covers half the skin:
+            # 7 nm/ps for 1 amu hydrogens at 300 K, thermal speeds scale as
+            # 1/sqrt(m) (the JAX package's calibration on the 23k
+            # rigid-water benchmark); the skin guard still checks every run
+            m_min = float(np.min(m_np[m_np > 0])) if np.any(m_np > 0) else 1.0
+            v_ref = 7.0 / np.sqrt(max(m_min, 1.008) / 1.008)
+            reuse_steps = int(0.5 * skin / (dt * v_ref))
+        K = min(25, max(1, int(reuse_steps)))
+        disp_limit2 = (0.5 * skin) ** 2 if K > 1 else np.inf
+        config = dict(reuse_steps=K, skin=skin,
+                      **{k: v for k, v in cfg.items()
+                         if k in ("counts", "capacity", "pme_grid",
+                                  "dispersion_grid")})
+
+        def window(k, pos, vel, box, gvals, data, acc):
+            """One window: the slot rebuild at ``pos``, then ``k`` steps.
+            Returns (positions, velocities) and takes the guard maxima into
+            ``acc``'s ``ov``, ``dmax`` and ``span`` in place."""
+            inv_m = consts(pos.device)[0]
+            state = prepare(pos.to(dtype), box, gvals, data)
+            for _ in range(k):
+                pos32 = pos.to(dtype)
+                _, forces, aux = apply(pos32, box, gvals, data, state)
+                pos, vel = integrate(pos, vel, with_bonds(forces, pos32),
+                                     inv_m)
+                torch.maximum(acc["dmax"], aux["maxdisp2"], out=acc["dmax"])
+            torch.maximum(acc["ov"], state["overflow"], out=acc["ov"])
+            if "excl_span" in state:
+                torch.maximum(acc["span"], state["excl_span"],
+                              out=acc["span"])
+            return pos, vel
+
+        def final(pos32, box, gvals, data):
+            state = prepare(pos32, box, gvals, data)
+            slice_e, _, _ = apply_full(pos32, box, gvals, data, state)
+            return slice_e, state["overflow"], state.get("excl_span")
 
     graphs = _WindowGraphs(window)
 
@@ -338,7 +396,8 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
 
     def _run(pos, vel, box, gvals, data, n_steps, graphed):
         dev = data["base_params"].device
-        check_box(box)
+        if skin is not None:
+            check_box(box)
         box = torch.as_tensor(box, device=dev).to(dtype)
         pos = torch.as_tensor(pos, device=dev).to(pos_dtype)
         vel = torch.as_tensor(vel, device=dev).to(dtype)
@@ -355,13 +414,11 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
             for k in blocks:
                 pos, vel = window(k, pos, vel, box, gvals, data, acc)
             ov, dmax, span = acc["ov"], acc["dmax"], acc["span"]
-        # energies variant for the reported energy, eager
-        pos32 = pos.to(dtype)
-        state = prepare(pos32, box, gvals, data)
-        slice_e, _, _ = apply_full(pos32, box, gvals, data, state)
-        ov = torch.maximum(ov, state["overflow"])
-        if "excl_span" in state:
-            span = torch.maximum(span, state["excl_span"])
+        # the evaluation with energies for the reported energy, eager
+        slice_e, ov_final, span_final = final(pos.to(dtype), box, gvals, data)
+        ov = torch.maximum(ov, ov_final)
+        if span_final is not None:
+            span = torch.maximum(span, span_final)
         energy = engine_mod.contract_energy(
             slice_e, slice_lambdas(consts(dev)[1], gvals))
         # one device->host transfer for the guards
@@ -390,9 +447,6 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
 
     run.eager = functools.partial(_run, graphed=False)
     run.stats = graphs.stats
-    run.config = dict(reuse_steps=K, skin=skin, mixed_precision=mixed,
-                      graph=graph_ok, pme_pipeline=pme_pipeline,
-                      **{k: v for k, v in cfg.items()
-                         if k in ("counts", "capacity", "pme_grid",
-                                  "dispersion_grid")})
+    run.config = dict(config, mixed_precision=mixed, graph=graph_ok,
+                      pme_pipeline=pme_pipeline)
     return run

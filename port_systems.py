@@ -5,6 +5,11 @@ such as the JAX package's, passed in as ``api``).
 * ``build_system``: the benchmark of bench.py:56-138 (rigid): 7,763 rigid
   3-site waters (23,289 atoms) in a 6.16 nm box, 3 subsets, two lambda
   scaling parameters, PME (cutoff 0.9 nm, Ewald tolerance 5e-4).
+* ``water_system``: ``n_mol`` of its waters in any cubic box, and
+  ``water_cube`` a cube cut from the benchmark state for it (a box below
+  3 cells of the cutoff per axis, which the per-step rebuild path takes);
+  ``add_constraints`` and ``add_bonds`` put the constraints and harmonic
+  bonds into a System for a Context.
 * ``build_solute_system``: a flexible 12-site united-atom chain in a cavity
   of a rigid-water box, decoupled by lambda_elec / lambda_vdw, with harmonic
   bonds.  With ``cluster_waters`` it builds the chain in a drop of the
@@ -45,41 +50,34 @@ SOLUTE_SEED = 7                   # the chain's Maxwell-Boltzmann velocities
 
 def build_system(api, method="PME"):
     """bench.py:56-138 (rigid) through ``api``, plus dE/dlambda requests for
-    both scaling parameters, under the nonbonded ``method`` ("PME" or
-    "LJPME").  Returns (system, force, box length, constraints (pairs,
-    dists))."""
-    n_mol = N_MOLECULES
-    n_atoms = 3 * n_mol
-    box = float(np.cbrt(n_atoms / 100.2))
-    rng = np.random.default_rng(42)
+    both scaling parameters, under the nonbonded ``method`` ("PME",
+    "LJPME" or another of the force's method names).  Returns (system,
+    force, box length, constraints (pairs, dists)); the positions are the
+    benchmark state's (STATE_FILE)."""
+    box = float(np.cbrt(3 * N_MOLECULES / 100.2))
+    system, force, constraints = water_system(api, N_MOLECULES, box, method)
+    return system, force, box, constraints
+
+
+def water_system(api, n_mol, box, method="PME"):
+    """``n_mol`` rigid 3-site waters of the benchmark in a cubic ``box``:
+    particles, the water-triangle exclusions, the subsets (first, second and
+    last third of the molecules), the scaling parameters ``lambda01`` and
+    ``lambda12`` with their dE/dlambda requests.  Returns (system, force,
+    constraints (pairs, dists)), the constraints not yet in the System
+    (:func:`add_constraints`)."""
     force = api.SlicedNonbondedForce(3)
     force.setNonbondedMethod(getattr(api.SlicedNonbondedForce, method))
     force.setCutoffDistance(0.9)
     force.setEwaldErrorTolerance(5e-4)
     system = api.System()
     system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
-    positions = np.zeros((n_atoms, 3))
     c_pairs, c_dists = [], []
-    m = int(np.ceil(n_mol ** (1 / 3)))
-    spacing = box / m
     for k in range(n_mol):
-        iz, r = divmod(k, m * m)
-        iy, ix = divmod(r, m)
-        center = (np.array([ix, iy, iz]) + 0.5) * spacing
         for mass, (q, sig, eps) in zip(WATER_MASSES, WATER_PARAMS):
             system.addParticle(mass)
             force.addParticle(q, sig, eps)
         o = 3 * k
-        center = center + rng.uniform(-0.06, 0.06, 3) * spacing
-        axis = rng.normal(size=3)
-        axis /= np.linalg.norm(axis)
-        perp = np.cross(axis, rng.normal(size=3))
-        perp /= np.linalg.norm(perp)
-        half = D_HH / 2
-        h = np.sqrt(D_OH ** 2 - half ** 2)
-        positions[o] = center
-        positions[o + 1] = center + h * axis + half * perp
-        positions[o + 2] = center + h * axis - half * perp
         force.addException(o, o + 1, 0, 1, 0)
         force.addException(o, o + 2, 0, 1, 0)
         force.addException(o + 1, o + 2, 0, 1, 0)
@@ -96,7 +94,71 @@ def build_system(api, method="PME"):
     force.addEnergyParameterDerivative("lambda01")
     force.addEnergyParameterDerivative("lambda12")
     system.addForce(force)
-    return system, force, box, (c_pairs, c_dists)
+    return system, force, (c_pairs, c_dists)
+
+
+def add_constraints(system, constraints):
+    """The (pairs, dists) triangles of :func:`water_system` or
+    :func:`build_solute_system` as the System's constraints, which a
+    Context reads."""
+    for tri, dists in zip(*constraints):
+        for (i, j), d in zip(tri, dists):
+            system.addConstraint(i, j, d)
+
+
+def add_bonds(api, system, bonds):
+    """The (M, 4) harmonic bonds (i, j, r0, k) of
+    :func:`build_solute_system` as a HarmonicBondForce of the System."""
+    force = api.HarmonicBondForce()
+    for i, j, r0, k in bonds:
+        force.addBond(int(i), int(j), float(r0), float(k))
+    system.addForce(force)
+
+
+def water_cube(water_positions, water_velocities, box_len, edge):
+    """A periodic cube cut from the rigid-water box ``water_positions`` (3
+    sites per molecule, cubic box ``box_len``) at that box's density.
+
+    Each molecule is moved by whole box vectors to put its oxygen in the
+    primary box, and the molecules whose oxygen lies in [0, edge) on every
+    axis are kept, whole.  Across the faces of the new periodic box a kept
+    pair may overlap, as the cut brings together waters that were never
+    neighbours: a molecule is removed, the one with the most such contacts
+    first, while any pair across a face has two atoms closer than the
+    closest pair of their kinds (O-O, O-H, H-H) of different molecules
+    inside the cut.  The molecules are then moved rigidly, their oxygens
+    scaled about the origin, into the cube whose edge gives the kept atoms
+    the density of ``box_len``.  Returns (positions, velocities, edge) of
+    the kept waters and the cube's edge."""
+    waters = np.asarray(water_positions, dtype=np.float64).reshape(-1, 3, 3)
+    waters = waters - box_len * np.floor(waters[:, :1] / box_len)
+    keep = np.all(waters[:, 0] < edge, axis=1)
+    waters = waters[keep]
+    vel = np.asarray(water_velocities, dtype=np.float64).reshape(-1, 3, 3)
+    vel = vel[keep]
+    # the shift of each pair's oxygens to their minimum image in the cube:
+    # nonzero for the pairs that meet across a face
+    shift = -edge * np.round((waters[None, :, 0] - waters[:, None, 0]) / edge)
+    d = (waters[None, :, None, :, :] + shift[:, :, None, None, :]
+         - waters[:, None, :, None, :])
+    r = np.sqrt(np.sum(d * d, axis=-1))           # (m, m, 3, 3) atom pairs
+    kinds = np.minimum(np.arange(3), 1)           # O, H, H
+    kind_pair = kinds[:, None] + kinds[None, :]   # 0 O-O, 1 O-H, 2 H-H
+    across = np.any(shift != 0.0, axis=-1)
+    inside = ~across & ~np.eye(len(waters), dtype=bool)
+    closest = np.array([r[inside][:, kind_pair == k].min() for k in range(3)])
+    contact = across & np.any(r < closest[kind_pair], axis=(2, 3))
+    alive = np.ones(len(waters), dtype=bool)
+    while True:
+        counts = np.sum(contact & alive[None, :], axis=1) * alive
+        if counts.max() == 0:
+            break
+        alive[counts.argmax()] = False
+    waters, vel = waters[alive], vel[alive]
+    density = 3 * (len(water_positions) // 3) / box_len ** 3
+    new_edge = float(np.cbrt(3 * len(waters) / density))
+    waters = waters + (new_edge / edge - 1.0) * waters[:, :1]
+    return waters.reshape(-1, 3), vel.reshape(-1, 3), new_edge
 
 
 def zigzag_chain(center):

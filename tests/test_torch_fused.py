@@ -251,7 +251,13 @@ def test_fused_preshift_face_crossing_during_reuse():
 
 
 def test_unported_methods_raise():
+    """Bare Ewald, once refused here, builds in Ewald mode
+    (tests/test_torch_fallbacks.py holds it to the JAX package); the
+    window pipeline, which has no Ewald counterpart, still refuses it."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
     _, plan_t, _ = both_plans(pair_system, nbs.SlicedNonbondedForce.Ewald,
                               n_mol=100)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfused.make_fused_engine(plan_t)
+    _, _, cfg = tfused.make_fused_engine(plan_t)
+    assert cfg["pair"].mode == cuda_direct.MODE_EWALD
+    with pytest.raises(ValueError, match="needs a PME plan"):
+        tfused.make_fused_engine(plan_t, pme_pipeline="grid")

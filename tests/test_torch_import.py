@@ -28,6 +28,28 @@ def test_port_imports_without_jax():
     assert leaked == "[]", out.stdout
 
 
+def test_api_modules_import_without_jax():
+    """The user API (Context, checkpoint, XML, profiling) loads no JAX and
+    nothing of the JAX package, and the package exports it."""
+    probe = """
+import sys
+import nonbondedslicing_tpu_torch as nbt
+from nonbondedslicing_tpu_torch.models import context
+from nonbondedslicing_tpu_torch.runtime import checkpoint, profiling
+from nonbondedslicing_tpu_torch.serialization import xml_proxy
+names = ("Context", "Platform", "State", "VerletIntegrator", "XmlSerializer")
+assert all(hasattr(nbt, name) and name in nbt.__all__ for name in names)
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m.startswith("nonbondedslicing_tpu.")))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_kernel_build_is_lazy():
     """Importing the kernel loader compiles nothing; the library exists only
     after a CUDA launch asks for it."""

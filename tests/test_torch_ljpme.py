@@ -83,7 +83,8 @@ def test_dispersion_pass_f64_matches_generic_pme():
     e_t, f_t = cuda_pme.pme_reciprocal(
         slot_pos, slot_c6, slot_sub, box,
         torch.as_tensor(lam[slice_pair_table(NSUB)]), grid_shape=GRID,
-        eterm=eterm, slice_subset_pairs=slice_subsets(NSUB), dispersion=True)
+        eterm=eterm, slice_subset_pairs=torch.as_tensor(slice_subsets(NSUB)),
+        dispersion=True)
     inv = torch.zeros(N + 1, dtype=torch.int64)
     inv[table.reshape(-1).long()] = torch.arange(table.numel())
     f_t = f_t.transpose(1, 2).reshape(-1, 3)[inv[:N]].numpy()

@@ -8,9 +8,9 @@ These CPU runs take make_md_step's eager loop; tests/test_torch_gpu_graph.py
 holds its CUDA graphs against it on the card.
 
 The box holds 512 waters instead of 125: the fused engine needs at least 3
-cells of one cutoff per axis, and the 125-water box (1.55 nm) runs the JAX
-package's per-step rebuild fallback, which the port has not yet
-(ROADMAP A9).  The solute box is port_systems.py's solute system at a small
+cells of one cutoff per axis, and the 125-water box (1.55 nm) runs the
+per-step rebuild fallback in both packages (held to each other in
+tests/test_torch_fallbacks.py).  The solute box is port_systems.py's solute system at a small
 size: its 12-site chain with harmonic bonds in a 3 nm box of 216 waters
 spread to a third of water's density, so that it has 3 cells of its 0.9 nm
 cutoff per axis."""

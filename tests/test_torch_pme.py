@@ -65,7 +65,7 @@ def _port(positions, charge, subsets, lam, dtype):
     lam_nn = torch.as_tensor(lam[slice_pair_table(NSUB)]).to(dtype)
     e, f = cuda_pme.pme_reciprocal(
         slot_pos, slot_q, slot_sub, box, lam_nn, grid_shape=GRID,
-        eterm=eterm, slice_subset_pairs=slice_subsets(NSUB))
+        eterm=eterm, slice_subset_pairs=torch.as_tensor(slice_subsets(NSUB)))
     # slot forces -> atom order
     inv = torch.zeros(N + 1, dtype=torch.int64)
     inv[table.reshape(-1).long()] = torch.arange(table.numel())
@@ -156,7 +156,8 @@ def test_energies_spread_in_double():
     eterm = torch.as_tensor(tpme.coulomb_eterm_np(
         GRID, moduli, box.double().numpy(), ALPHA)).float()
     lam_nn = torch.as_tensor(lam[slice_pair_table(NSUB)])
-    kw = dict(grid_shape=GRID, slice_subset_pairs=slice_subsets(NSUB))
+    kw = dict(grid_shape=GRID,
+              slice_subset_pairs=torch.as_tensor(slice_subsets(NSUB)))
     out = {}
     for dtype in (torch.float32, torch.float64):
         out[dtype] = cuda_pme.pme_reciprocal(
@@ -169,5 +170,31 @@ def test_energies_spread_in_double():
     assert e32.dtype == torch.float64 and f32.dtype == torch.float32
     np.testing.assert_allclose(e32.numpy(), e64.numpy(), rtol=1e-12)
     assert torch.equal(f32, f_only)
+    np.testing.assert_allclose(f32.numpy(), f64.numpy(), rtol=0,
+                               atol=2e-5 * (np.abs(f64.numpy()).max() + 1.0))
+
+
+def test_atom_space_energies_spread_in_double():
+    """The generic engine's PME on atoms (``pme.pme_reciprocal``) takes the
+    energies of a float32 call from a float64 spread too: equal to the
+    float64 call on the same rounded inputs (and the same kernel) to 1e-12,
+    its forces float32 within 2e-5 of max|F|."""
+    positions, charge, subsets, lam = _inputs()
+    pos = torch.as_tensor(positions).float()
+    q = torch.as_tensor(charge).float()
+    box = torch.as_tensor(np.diag([BOX] * 3)).float()
+    eterm = torch.as_tensor(tpme.coulomb_eterm_np(
+        GRID, tpme.bspline_moduli(GRID), box.double().numpy(), ALPHA,
+        half=True)).float()
+    kw = dict(alpha=ALPHA, grid_shape=GRID, moduli=None, num_subsets=NSUB,
+              slice_subset_pairs=torch.as_tensor(slice_subsets(NSUB)),
+              slice_table=torch.as_tensor(slice_pair_table(NSUB)))
+    out = {dtype: tpme.pme_reciprocal(
+        pos.to(dtype), box.to(dtype), q.to(dtype), torch.as_tensor(subsets),
+        torch.as_tensor(lam).to(dtype), eterm=eterm.to(dtype), **kw)
+        for dtype in (torch.float32, torch.float64)}
+    (e32, f32), (e64, f64) = out[torch.float32], out[torch.float64]
+    assert e32.dtype == torch.float64 and f32.dtype == torch.float32
+    np.testing.assert_allclose(e32.numpy(), e64.numpy(), rtol=1e-12)
     np.testing.assert_allclose(f32.numpy(), f64.numpy(), rtol=0,
                                atol=2e-5 * (np.abs(f64.numpy()).max() + 1.0))

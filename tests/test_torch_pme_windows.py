@@ -233,7 +233,7 @@ def _reciprocal(s, layout, lam, dtype, pipeline, bricks=None):
     lam_nn = torch.as_tensor(lam[slice_pair_table(nsub)]).to(dtype)
     return cuda_pme.pme_reciprocal(
         s["pos"], s["q"], s["sub"], s["box"], lam_nn, grid_shape=grid,
-        eterm=eterm, slice_subset_pairs=slice_subsets(nsub),
+        eterm=eterm, slice_subset_pairs=torch.as_tensor(slice_subsets(nsub)),
         pipeline=pipeline, bricks=bricks)
 
 
@@ -289,8 +289,8 @@ def test_grid_pipeline_f64_matches_brick_oracle_and_stencil(layout):
         grid, tpme.bspline_moduli(grid), np.diag([BOX] * 3), ALPHA))
     e_shifted = tpme.pme_slice_energies_ri(
         spec.real, spec.imag,
-        eterm * torch.as_tensor(tpme.rfft_energy_weights(grid[2])),
-        slice_subsets(nsub))
+        eterm * tpme.rfft_energy_weights(grid[2], "cpu"),
+        torch.as_tensor(slice_subsets(nsub)))
     np.testing.assert_allclose(e_shifted.numpy(), e_g.numpy(), rtol=1e-10)
 
 
@@ -368,7 +368,8 @@ def test_windows_wider_than_two_bricks_raise(call):
             cuda_pme.pme_reciprocal(
                 pos, q, sub, box, torch.ones(nsub, nsub, dtype=torch.float64),
                 grid_shape=grid, eterm=torch.ones(8, 8, 5),
-                slice_subset_pairs=slice_subsets(nsub), pipeline="grid",
+                slice_subset_pairs=torch.as_tensor(slice_subsets(nsub)),
+                pipeline="grid",
                 bricks=bricks)
 
 

@@ -133,7 +133,24 @@ the last line:
    100 steps with the velocities rescaled to 300 K by each chunk's mean
    temperature (the cut's faces relax), then 200 timed steps and 200
    sampled every 25 steps, with phase 5's gates (the temperature the mean
-   of the samples), and the evaluation against float64.
+   of the samples), and the evaluation against float64;
+13. the constrained solute, the native library, the example: (a) the
+   solute box with its chain's eleven 1-2 pairs as constraints
+   (port_systems.chain_constraints: one 11-wide cluster, every water
+   triangle padded to it, solved by CGLS inside the graph) and its 1-3
+   pairs as harmonic bonds, through make_md_step at phase 6's capacity:
+   one warm-up chunk and three timed chunks, replayed as CUDA graphs,
+   with phase 5's gates and the chain's distances within 1e-5 nm; the
+   evaluation at the state reached, card f32 against CPU f64; phase 9's
+   graph against eager to the bit; 200-step chunks of the graph and of
+   the eager body with the old ``torch.linalg.pinv`` solve in turns,
+   ms/step printed beside the eager body's and phase 9's solute box; the
+   same system through a Context (its constraints in the System, a
+   HarmonicBondForce): no capture after the warm-up, phase 5's gates;
+   (b) the native host library (runtime/native.py) built and loaded, its
+   dispersion coefficients of the solute box within 1e-8 of the Python
+   class loop; (c) examples/lambda_sweep_torch.py on the card, its
+   linearity assertion included.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -165,12 +182,15 @@ must equal it to the bit.
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
 "solute", "rigid_ljpme", "solute_ljpme", "generic", "context",
-"context_solute", "ewald" or "getstate"): launches in that path's run
+"context_solute", "ewald", "getstate" or "constrained"): launches in that
+path's run
 (the MD runs of phases 5, 6, 7 and 8; the solute box's evaluations of
 phases 7 and 8; phase 11's six float32 evaluations; phase 12's step()
 calls of both Contexts, the bare-Ewald MD and the float32 getState
-calls; the per-step rebuild launches no hand-written kernel and has no
-entry), max abs error against the plain
+calls; phase 13's MD of the constrained solute, whose kernels' shapes
+are phase 6's and whose errors and times are phase 6's; the per-step
+rebuild launches no hand-written kernel and has no entry), max abs error
+against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
 operations the inputs need over 67 TFLOP/s (H100 SXM FP32 outside the
 tensor cores; 34 TFLOP/s FP64 for the double spread) and the bytes read
@@ -189,11 +209,13 @@ import time
 
 import numpy as np
 
-from port_systems import (CAVITY_NM, D_HH, D_OH, DT_PS, KB, N_MOLECULES,
-                          SOLUTE_SITES, STATE_FILE, WATER_MASSES,
-                          add_bonds, add_constraints, build_solute_system,
-                          build_system, cluster_waters, max_cell_occupancy,
-                          solute_velocities, water_cube, water_system)
+from port_systems import (BOND_R0, CAVITY_NM, D_HH, D_OH, DT_PS, KB,
+                          N_MOLECULES, SOLUTE_SITES, STATE_FILE,
+                          WATER_MASSES, add_bonds, add_constraints,
+                          build_solute_system, build_system,
+                          chain_constraints, cluster_waters,
+                          max_cell_occupancy, solute_velocities, water_cube,
+                          water_system)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = os.path.join(ROOT, "nonbondedslicing_tpu_torch")
@@ -348,7 +370,9 @@ ENTRIES = (
     ("pair_column_energies_ewald", "pair_column_energies", "ewald", "ewald"),
     ("pair_cell_energies_getstate", "pair_cell_energies", "getstate",
      "getstate"),
-)
+) + tuple((k + "_constrained", k, "constrained", "constrained")
+          for k in ("pair_cell", "pair_cell_energies", "pme_spread",
+                    "pme_spread_energies", "pme_interp"))
 # the kernels each run must launch; it must launch no other ("generic":
 # phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode;
 # phase 12: "context" and "context_solute" the step() calls of a Context on
@@ -377,6 +401,7 @@ RUN_KERNELS = {
 }
 RUN_KERNELS["context"] = RUN_KERNELS["rigid"]
 RUN_KERNELS["context_solute"] = RUN_KERNELS["solute"]
+RUN_KERNELS["constrained"] = RUN_KERNELS["solute"]
 
 
 class SmokeFailure(RuntimeError):
@@ -1214,7 +1239,8 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
     the state one captured window reaches: positions and velocities equal
     to the bit, the energy within 1e-12 relative (TOL_GRAPH_ENERGY), the
     same kernel launches counted; then CHUNK_STEPS-step chunks timed in
-    turns graph, eager, eager, graph."""
+    turns graph, eager, eager, graph.  Returns the run, the state after
+    the timed chunks and their ms/step ({"graph": [..], "eager": [..]})."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     run = make_run(capacity, None)
@@ -1259,6 +1285,7 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
     print(f"{label}: ms/step of {CHUNK_STEPS}-step chunks in turns: graph "
           f"{[round(x, 3) for x in ms['graph']]}, eager "
           f"{[round(x, 3) for x in ms['eager']]} ({card})")
+    return run, (p, v), ms
 
 
 def nve_drift(label, chunks, p, v, box, gvals, data, masses, card):
@@ -1773,7 +1800,7 @@ def only_run(ctx, force):
 
 def context_md(label, ctx, force, masses, first_water, n_waters, card,
                reset_launches, launches, other=None,
-               n_timed=CONTEXT_TIMED_CHUNKS):
+               n_timed=CONTEXT_TIMED_CHUNKS, n_dof=None):
     """A warm-up and ``n_timed`` timed step(CHUNK_STEPS) calls of a Context
     on the card, counted: its one MD step replays the graph it captured in
     the warm-up and captures none after it, the force-only pair kernel runs
@@ -1781,8 +1808,10 @@ def context_md(label, ctx, force, masses, first_water, n_waters, card,
     ``other`` (a callable) runs one CHUNK_STEPS chunk of the same MD by
     another way: it follows each Context chunk, and the timed rounds run
     the two in turns, Context first in the even rounds and ``other`` first
-    in the odd ones, each timed and counted apart.  Returns (its run, the
-    Context's launches, sorted ms/step of the Context and of ``other``)."""
+    in the odd ones, each timed and counted apart.  ``n_dof`` (the degrees
+    of freedom of the temperature) defaults to the rigid waters'.  Returns
+    (its run, the Context's launches, sorted ms/step of the Context and of
+    ``other``)."""
     import torch
     integrator = ctx.getIntegrator()
     n = len(masses)
@@ -1827,7 +1856,7 @@ def context_md(label, ctx, force, masses, first_water, n_waters, card,
     p, v = ctx_arrays(ctx)
     energy = ctx.getState(getEnergy=True).getPotentialEnergy()
     ms = md_checks(label, p, v, energy, masses, first_water,
-                   3 * n - 3 * n_waters - 3, chunk_s, n, card)
+                   n_dof or 3 * n - 3 * n_waters - 3, chunk_s, n, card)
     return run, made, ms, sorted(1e3 * t / CHUNK_STEPS for t in other_s[1:])
 
 
@@ -2132,6 +2161,212 @@ def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
                 skip, jump)
 
 
+def chain_constraint_error(p):
+    """Largest |distance - BOND_R0| of the chain's 1-2 pairs (nm)."""
+    x = p.double().cpu().numpy()[:SOLUTE_SITES]
+    return float(np.abs(np.linalg.norm(x[1:] - x[:-1], axis=1)
+                        - BOND_R0).max())
+
+
+def pinv_solve(self, J, b):
+    """The wide clusters' solve before CGLS, ``torch.linalg.pinv``, which
+    synchronizes with the host (no capture): only timed, for the record,
+    in place of ``GatherConstrainer._solve`` on a system whose clusters
+    are all wider than 3."""
+    import torch
+    return torch.einsum("...kl,...l->...k", torch.linalg.pinv(J), b)
+
+
+def constrained_phase(dev, card, reset_launches, results, run_launches,
+                      pos_np, vel_np, box_len, capacity, solute_ms):
+    """Phase 13: the constrained solute box graphed, the native library,
+    the example (see the module docstring).  ``capacity`` is phase 6's
+    (the same positions give the same slot tables), ``solute_ms`` phase
+    9's ms/step of the solute box's graph and eager body."""
+    import importlib.util
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    from nonbondedslicing_tpu_torch.ops.dispersion import \
+        calc_dispersion_corrections
+    from nonbondedslicing_tpu_torch.runtime import constraints as cons_mod
+    from nonbondedslicing_tpu_torch.runtime import native
+    from nonbondedslicing_tpu_torch.runtime.fastpath import (DEFAULT_SKIN,
+                                                             make_md_step)
+    f32 = torch.float32
+
+    # ---- (a) the solute box with its chain rigid along its bonds
+    t0 = time.time()
+    (system, force, s_pos_np, masses, water_cons, bonds,
+     kept) = build_solute_system(nbt, pos_np, box_len)
+    triples, bonds13 = chain_constraints(water_cons, bonds)
+    constraints = cons_mod.cluster_constraints(triples, len(masses))
+    plan = plan_mod.build_plan(force, system)
+    n = plan.num_particles
+    n_waters = (n - SOLUTE_SITES) // 3
+    width = constraints[0].shape[1]
+    print(f"constrained: {n} atoms, {len(triples)} constraints in "
+          f"{constraints[0].shape[0]} clusters of width {width} (the chain's "
+          f"{SOLUTE_SITES - 1}; {n_waters} water triangles padded to it), "
+          f"{cons_mod.cgls_iterations(width)} CGLS iterations a solve, "
+          f"{len(bonds13)} harmonic 1-3 bonds, built in "
+          f"{time.time() - t0:.1f} s")
+    check(width == SOLUTE_SITES - 1 and len(triples) == 3 * n_waters
+          + SOLUTE_SITES - 1, f"constrained: one {SOLUTE_SITES - 1}-wide "
+          f"cluster, every water triangle padded to it")
+    box = torch.as_tensor(np.diag([box_len] * 3), device=dev).to(f32)
+    gvals = torch.as_tensor(plan.global_defaults, device=dev).to(f32)
+    data = engine_mod.plan_data(plan, device=dev, dtype=f32)
+    pos0 = torch.as_tensor(s_pos_np, device=dev).to(f32)
+    vel0 = torch.as_tensor(solute_velocities(vel_np, kept), device=dev).to(f32)
+    n_dof = 3 * n - len(triples) - 3
+
+    def make_run(cap, reuse):
+        return make_md_step(plan, masses, dt=DT_PS, dtype=f32,
+                            cell_capacity=cap, reuse_steps=reuse,
+                            constraints=constraints, bonds=bonds13)
+
+    reset_launches()
+    chunks = Chunks(make_run, capacity, nbt.OpenMMException)
+    p, v, energy, chunk_s, config = run_md(chunks, pos0, vel0, box, gvals,
+                                           data, SOLUTE_TIMED_CHUNKS)
+    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    print(f"constrained md: config {config}; graph {chunks.run.stats}; "
+          f"warm-up chunk {chunk_s[0]:.2f} s, timed chunks "
+          f"{[round(t, 3) for t in chunk_s[1:]]} s; launches {launches}")
+    check(config["graph"] and chunks.graph_stats()[0] > 0,
+          f"constrained md: the K-step windows run as CUDA graph replays "
+          f"({chunks.graph_stats()[0]}; the {width}-wide solve is "
+          f"captured)")
+    check_launches("constrained md", "constrained", launches)
+    launch_report("constrained md", chunks, launches, "pair_cell")
+    c_err = chain_constraint_error(p)
+    check(c_err <= TOL_CONSTRAINT, f"constrained md: the chain's 1-2 "
+          f"distances within {c_err:.3e} nm of {BOND_R0} (<= "
+          f"{TOL_CONSTRAINT})")
+    ms_md = md_checks("constrained md", p, v, energy, masses, SOLUTE_SITES,
+                      n_dof, chunk_s, n, card)
+    run_launches["constrained"] = launches
+    # the kernels at this path's shapes: phase 6's checks (the same plan,
+    # positions and capacity give the same slot tables)
+    for k, k6 in (("pair_cell", "pair_cell"),
+                  ("pair_cell_energies", "pair_cell_energies"),
+                  ("pme_spread", "pme_spread_solute"),
+                  ("pme_spread_energies", "pme_spread_energies_solute"),
+                  ("pme_interp", "pme_interp_solute")):
+        results[k + "_constrained"] = results[k6]
+
+    # the evaluation at the state the MD reached: card f32 against the
+    # same code on CPU tensors in float64
+    prepare, apply, _ = fused_mod.make_fused_engine(
+        plan, cell_capacity=chunks.capacity, target_skin=DEFAULT_SKIN,
+        energies=True)
+    evaluation_check("constrained evaluation", plan, chunks.capacity, apply,
+                     prepare(p, box, gvals, data), p, box, gvals, data,
+                     p.double().cpu().numpy(), np.diag([box_len] * 3),
+                     plan.global_defaults)
+
+    # the graph against its eager body, and the eager body with the
+    # pseudo-inverse the wide solve replaced, in turns
+    run, (p, v), ms = graph_against_eager(
+        "constrained graph", make_run, chunks.capacity, pos0, vel0, box,
+        gvals, data, reset_launches, card)
+    cgls = cons_mod.GatherConstrainer._solve
+    ms["eager (pinv)"] = []
+    for name in ("eager (pinv)", "graph", "graph", "eager (pinv)"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "graph":
+            p, v, _ = run(p, v, box, gvals, data, CHUNK_STEPS)
+        else:
+            cons_mod.GatherConstrainer._solve = pinv_solve
+            try:
+                p, v, _ = run.eager(p, v, box, gvals, data, CHUNK_STEPS)
+                torch.cuda.synchronize()
+            finally:
+                cons_mod.GatherConstrainer._solve = cgls
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / CHUNK_STEPS)
+    c_err = chain_constraint_error(p)
+    check(c_err <= TOL_CONSTRAINT, f"constrained graph: the chain's 1-2 "
+          f"distances within {c_err:.3e} nm after the timed chunks")
+    med = {k: float(np.median(x)) for k, x in ms.items()}
+    print(f"constrained: ms/step, {CHUNK_STEPS}-step chunks in this call: "
+          f"graph {med['graph']:.3f} {[round(x, 3) for x in ms['graph']]}, "
+          f"eager (CGLS) {med['eager']:.3f} "
+          f"{[round(x, 3) for x in ms['eager']]}, eager (pinv) "
+          f"{med['eager (pinv)']:.3f} "
+          f"{[round(x, 3) for x in ms['eager (pinv)']]}; phase 9's solute "
+          f"box (3-wide clusters): graph {np.median(solute_ms['graph']):.3f}"
+          f", eager {np.median(solute_ms['eager']):.3f}; phase 13's MD "
+          f"median {np.median(ms_md):.3f} ({n} atoms, {card})")
+
+    # the same system through the user API
+    c_system = build_solute_system(nbt, pos_np, box_len)[0]
+    for i, j, d in triples:
+        c_system.addConstraint(i, j, d)
+    add_bonds(nbt, c_system, bonds13)
+    c_force = [f for f in c_system.getForces()
+               if isinstance(f, nbt.SlicedNonbondedForce)][0]
+    ctx = nbt.Context(c_system, nbt.VerletIntegrator(DT_PS),
+                      nbt.Platform.getPlatformByName("CUDA"))
+    ctx.setPositions(s_pos_np)
+    ctx.setVelocities(solute_velocities(vel_np, kept))
+
+    def launches_now():
+        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+
+    c_run, made, _, _ = context_md(
+        "context constrained md", ctx, c_force, masses, SOLUTE_SITES,
+        n_waters, card, reset_launches, launches_now, n_dof=n_dof)
+    check(c_run.config["graph"] and c_run.stats["replays"] > 0,
+          f"context constrained md: graph replays ({c_run.stats})")
+    check_launches("context constrained md", "constrained", made)
+    c_err = chain_constraint_error(ctx_arrays(ctx)[0])
+    check(c_err <= TOL_CONSTRAINT, f"context constrained md: the chain's "
+          f"1-2 distances within {c_err:.3e} nm of {BOND_R0}")
+
+    # ---- (b) the native host library
+    lib = native.get_lib()
+    check(lib is not None and native.LAST_BUILD["error"] is None,
+          f"native: {native.LAST_BUILD['path']} built and loaded "
+          f"({native.LAST_BUILD['build_seconds']:.2f} s of g++; error "
+          f"{native.LAST_BUILD['error']})")
+    t0 = time.perf_counter()
+    nat = calc_dispersion_corrections(force)
+    t_nat = time.perf_counter() - t0
+    get_lib = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        t0 = time.perf_counter()
+        py = calc_dispersion_corrections(force)
+        t_py = time.perf_counter() - t0
+    finally:
+        native.get_lib = get_lib
+    rel = float(np.max(np.abs(nat - py) / np.maximum(np.abs(py), 1e-300)))
+    print(f"native: dispersion coefficients {nat.tolist()} kJ/mol nm^3, "
+          f"the Python loop's {py.tolist()} ({n} particles; {t_nat:.3f} s "
+          f"against {t_py:.3f} s on the host)")
+    check(rel <= 1e-8, f"native: dispersion corrections of the solute box "
+          f"match the Python class loop, {rel:.3e} relative <= 1e-8")
+
+    # ---- (c) the example, on the card
+    spec = importlib.util.spec_from_file_location(
+        "lambda_sweep_torch", os.path.join(ROOT, "examples",
+                                           "lambda_sweep_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.time()
+    energies, derivs, e_md = example.main([])
+    check(len(energies) == 5 and math.isfinite(e_md),
+          f"example: examples/lambda_sweep_torch.py on the card passed its "
+          f"linearity assertion and {example.MD_STEPS} MD steps "
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     if not os.path.isdir(PACKAGE) or not os.path.exists(STATE_FILE):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2151,6 +2386,7 @@ def main():
     from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
     from nonbondedslicing_tpu_torch.runtime.fastpath import (DEFAULT_SKIN,
                                                              make_md_step)
+    from nonbondedslicing_tpu_torch.runtime import native
     from nonbondedslicing_tpu_torch.runtime.kernels import LIBRARY
     t_start = time.time()
 
@@ -2175,6 +2411,10 @@ def main():
     LIBRARY.build()
     print(f"build: {LIBRARY.path.name} in {time.time() - t0:.1f} s "
           f"(nvcc {LIBRARY.build_seconds:.1f} s)")
+    native.get_lib()
+    print(f"native: {native.LAST_BUILD['path']}, g++ "
+          f"{native.LAST_BUILD['build_seconds']:.2f} s, error "
+          f"{native.LAST_BUILD['error']}")
     parent = load_parent(parent_procs)
     for line in LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2556,10 +2796,10 @@ def main():
         torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         reset_launches, card)
-    graph_against_eager(
+    solute_ms = graph_against_eager(
         "solute graph", make_solute_run, s_capacity, s_pos,
         torch.as_tensor(s_vel_np, device=dev).to(f32), box, s_gvals, s_data,
-        reset_launches, card)
+        reset_launches, card)[2]
     # the paths that only LJPME (the C6 pass) and the window pipeline
     # (brick-major slots, the window kernels) run, to the bit
     graph_against_eager(
@@ -2623,6 +2863,13 @@ def main():
     api_phase(dev, card, reset_launches, results, run_launches, pos_np,
               vel_np, box_len, capacity, reps)
     print(f"api: {time.time() - t0:.1f} s")
+
+    # ---- 13. the constrained solute graphed, the native library, the
+    # example
+    t0 = time.time()
+    constrained_phase(dev, card, reset_launches, results, run_launches,
+                      pos_np, vel_np, box_len, s_capacity, solute_ms)
+    print(f"constrained: {time.time() - t0:.1f} s")
     print(f"total: {time.time() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

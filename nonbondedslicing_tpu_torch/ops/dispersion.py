@@ -8,7 +8,8 @@ contribute to the diagonal slice of their subset, cross-class pairs to
 sliceIndex(s1, s2).  The result is a per-slice coefficient; the engine divides
 by the box volume at evaluation time
 (ReferenceNonbondedSlicingKernels.cpp:244-249) so NPT box rescaling is handled
-correctly.
+correctly.  The class sums run in the native C++ helper (``runtime/native.py``)
+where it builds, as in the JAX package; the Python loop is its fallback.
 """
 
 import math
@@ -84,6 +85,14 @@ def calc_dispersion_corrections(force) -> np.ndarray:
     use_switch = force.getUseSwitchingFunction()
     cutoff = force.getCutoffDistance()
     switch = force.getSwitchingDistance()
+
+    # native C++ path for the O(C^2) class-pair sums (runtime/native.py)
+    from ..runtime import native
+    nat = native.dispersion_corrections(sigma, epsilon, subset,
+                                        force.getNumSubsets(), use_switch,
+                                        cutoff, switch)
+    if nat is not None:
+        return nat
 
     class_counts = {}
     for i in range(n):

@@ -10,11 +10,15 @@ Two solvers, chosen by ``make_constrainer`` as the JAX package chooses them
   scatters.  The reference plugin takes SETTLE from OpenMM core.
 * Iterative M-SHAKE / RATTLE over gathered clusters of coupled constraints
   for every other layout (waters beside a solute, chains, wider clusters):
-  a closed-form 3x3 solve for clusters of width 3, a pseudo-inverse for
-  wider ones, padded rows masked out.
+  a closed-form 3x3 solve for clusters of width 3, for wider ones a fixed
+  number of CGLS iterations (the minimum-norm solution, as the JAX
+  package's pseudo-inverse gives it), padded rows masked out.  Neither
+  reads back to the host, so the MD step captures both in its CUDA
+  graphs.
 
-The dense M-SHAKE triangle solver (contiguous triangles that are not
-isoceles) is not ported yet (ROADMAP A11) and raises.
+The JAX package's dense M-SHAKE triangle solver (contiguous triangles that
+are not isoceles) has no copy here: such triangles take the gather solver,
+whose width-3 solve is the same iteration in another data layout.
 """
 
 import numpy as np
@@ -22,6 +26,46 @@ import torch
 
 # M-SHAKE sweeps of the gather solver (the JAX package's default)
 MSHAKE_ITERATIONS = 8
+
+
+def cgls_iterations(width):
+    """CGLS iterations of a width-C cluster's solve.  In exact arithmetic
+    CGLS ends within rank(J) <= C iterations; in float32 the search
+    directions lose their orthogonality and it takes up to four more (to
+    come within 1e-6 of the pseudo-inverse's answer: rigid CH4, C = 10,
+    14 at the position stage; an 11-wide chain 12; two waters joined by a
+    constraint, C = 7, 10), so 3C/2, which
+    tests/test_torch_wide_constraints.py holds to 1e-5 in float32."""
+    return (3 * width + 1) // 2
+
+
+def cgls_solve(J, b, iterations):
+    """Minimum-norm least-squares solutions of the batched systems
+    J x = b (J (..., C, C), b (..., C)) by ``iterations`` steps of CGLS,
+    conjugate gradients on Jᵀ J x = Jᵀ b from x = 0: every iterate lies in
+    the range of Jᵀ, so a singular but consistent block (rigid CH4: 10
+    constraints on 9 internal degrees of freedom) gets pinv(J) b.  Only
+    elementwise work and sums over the blocks, a fixed number of them:
+    no host sync, and the same operations in the same order every call.
+    A block whose residual vanishes stops moving (its step sizes are
+    0 / tiny)."""
+    tiny = torch.finfo(J.dtype).tiny
+    x = torch.zeros_like(b)
+    r = b
+    s = torch.sum(J * r[..., :, None], dim=-2)                  # Jᵀ r
+    p = s
+    gamma = torch.sum(s * s, dim=-1, keepdim=True)
+    for _ in range(iterations):
+        q = torch.sum(J * p[..., None, :], dim=-1)              # J p
+        alpha = gamma / torch.clamp(torch.sum(q * q, dim=-1, keepdim=True),
+                                    min=tiny)
+        x = torch.addcmul(x, alpha, p)
+        r = torch.addcmul(r, alpha, q, value=-1.0)
+        s = torch.sum(J * r[..., :, None], dim=-2)
+        gamma_new = torch.sum(s * s, dim=-1, keepdim=True)
+        p = torch.addcmul(s, gamma_new / torch.clamp(gamma, min=tiny), p)
+        gamma = gamma_new
+    return x
 
 
 def _contiguous_triangles(pairs, n_particles):
@@ -251,6 +295,8 @@ class GatherConstrainer:
     """M-SHAKE positions and RATTLE velocities over clusters of coupled
     distance constraints, gathered from and scattered to the atom array
     (``_make_gather_constrainer``, JAX ``runtime/constraints.py:430-535``).
+    Clusters of width 3 take a closed-form solve, wider ones
+    :func:`cgls_solve` where the JAX package takes ``jnp.linalg.pinv``.
 
     ``pairs`` (M, C, 2) atom pairs, ``dists`` (M, C) target distances,
     ``mask`` (M, C) with 0 on the inert padded rows of clusters narrower
@@ -258,12 +304,12 @@ class GatherConstrainer:
     positions' device and dtype on first use.
     """
 
+    # no host sync at any width: the MD step captures it in its CUDA graphs
+    capturable = True
+
     def __init__(self, pairs, dists, masses, mask=None):
         m, width = pairs.shape[0], pairs.shape[1]
         self.width = width
-        # torch.linalg.pinv, for wider clusters, copies from the host, which
-        # a CUDA graph cannot capture: the MD step runs such systems eagerly
-        self.capturable = width == 3
         i_idx = pairs[..., 0].astype(np.int64)
         j_idx = pairs[..., 1].astype(np.int64)
         masses = np.asarray(masses, dtype=np.float64)
@@ -342,7 +388,7 @@ class GatherConstrainer:
         # minimum-norm least squares: wide clusters are often redundant
         # (rigid CH4: 10 distance constraints on 9 internal DOF), making
         # the Newton matrix singular but the system consistent
-        return torch.einsum("...kl,...l->...k", torch.linalg.pinv(J), b)
+        return cgls_solve(J, b, cgls_iterations(self.width))
 
     def _mask(self, c, J, rhs):
         if not self._masked:

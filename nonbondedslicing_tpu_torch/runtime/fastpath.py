@@ -227,9 +227,10 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     ``run.eager`` is the same function without the graph, the reference
     the graph is checked against; ``run.stats`` counts the captures, the
     replays and the kernel launches the replays counted.
-    ``run.config["graph"]`` is False for a system whose constraint
-    clusters are wider than 3 (their pseudo-inverse is not captured): it
-    runs eagerly on the card too.
+    ``run.config["graph"]`` says whether the windows are graphed: every
+    constrainer is captured (clusters wider than 3 included: their solve
+    is a fixed number of CGLS iterations,
+    ``runtime.constraints.cgls_solve``), so it is True.
 
     ``mixed_precision=True`` (with ``dtype=torch.float32`` only, as in the
     JAX package; ignored otherwise) carries the positions in float64: each

@@ -13,7 +13,8 @@ such as the JAX package's, passed in as ``api``).
 * ``build_solute_system``: a flexible 12-site united-atom chain in a cavity
   of a rigid-water box, decoupled by lambda_elec / lambda_vdw, with harmonic
   bonds.  With ``cluster_waters`` it builds the chain in a drop of the
-  waters around it, for the non-periodic methods.
+  waters around it, for the non-periodic methods; ``chain_constraints``
+  turns its 1-2 bonds into distance constraints.
 
 Both take ``method``, the name of the nonbonded method: "PME" (the
 default) or "LJPME", which adds the dispersion Ewald sum with the same
@@ -244,6 +245,22 @@ def build_solute_system(api, water_positions, box_len, method="PME"):
                              np.tile(WATER_MASSES, n_kept)])
     return (system, force, positions, masses, (c_pairs, c_dists),
             np.asarray(bonds, dtype=np.float64), kept)
+
+
+def chain_constraints(constraints, bonds):
+    """The solute box of :func:`build_solute_system` with its chain rigid
+    along its bonds (AllBonds-style constraints on the solute): the water
+    triangles ``constraints`` and the chain's 1-2 pairs at BOND_R0 as
+    (i, j, distance) triples, and the 1-3 pairs of ``bonds``, the harmonic
+    bonds that stay.  Clustered for the gather solver, the chain is one
+    (SOLUTE_SITES - 1)-wide cluster and every water triangle is padded to
+    its width."""
+    triples = [(int(i), int(j), float(d))
+               for tri, dists in zip(*constraints)
+               for (i, j), d in zip(tri, dists)]
+    triples += [(i, i + 1, BOND_R0) for i in range(SOLUTE_SITES - 1)]
+    bonds = np.asarray(bonds, dtype=np.float64)
+    return triples, bonds[bonds[:, 1] - bonds[:, 0] == 2]
 
 
 def cluster_waters(water_positions, box_len, radius):

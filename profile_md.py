@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's MD step goes, on one NVIDIA GPU.
 
-    python3 profile_md.py [--solute] [--pipeline grid] [--method LJPME]
-                          [--precision mixed]
+    python3 profile_md.py [--solute | --constrained] [--pipeline grid]
+                          [--method LJPME] [--precision mixed]
 
 Builds the benchmark system of port_systems.py (23,289 atoms, PME, SETTLE,
 2 fs) from extras/bench_state_rigid.npz, or with ``--solute`` its solute
 system (the 12-site chain in that box, harmonic bonds, the gather
-constrainer for the waters, the min-image cell pair kernel), under PME or
+constrainer for the waters, the min-image cell pair kernel), or with
+``--constrained`` that system with the chain's 1-2 pairs as constraints
+(one 11-wide cluster, the water triangles padded to it, the CGLS solve)
+and only its 1-3 pairs as bonds, under PME or
 with ``--method LJPME`` under LJPME, with the default PME pipeline or with
 ``--pipeline grid`` the brick-window one, in single precision or with
 ``--precision mixed`` in make_md_step's mixed precision (float64
@@ -40,7 +43,8 @@ import numpy as np
 
 from port_systems import (DT_PS, N_MOLECULES, STATE_FILE, WATER_MASSES,
                           build_solute_system, build_system,
-                          max_cell_occupancy, solute_velocities)
+                          chain_constraints, max_cell_occupancy,
+                          solute_velocities)
 
 CHUNK_STEPS = 200
 TIMED_CHUNKS = 5
@@ -67,6 +71,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--solute", action="store_true",
                         help="profile the solute path (the chain in water)")
+    parser.add_argument("--constrained", action="store_true",
+                        help="the solute path with the chain's bonds as "
+                             "constraints")
     parser.add_argument("--pipeline", choices=("stencil", "grid"),
                         default="stencil",
                         help="the PME pipeline (make_md_step's pme_pipeline)")
@@ -101,10 +108,15 @@ def main():
     vel_np = np.asarray(blob["velocities"], dtype=np.float64)
     masses = np.tile(WATER_MASSES, N_MOLECULES)
     bonds = None
-    if args.solute:
+    if args.solute or args.constrained:
         (system, force, pos_np, masses, constraints, bonds,
          kept) = build_solute_system(nbt, pos_np, box_len, args.method)
         vel_np = solute_velocities(vel_np, kept)
+    if args.constrained:
+        from nonbondedslicing_tpu_torch.runtime.constraints import \
+            cluster_constraints
+        triples, bonds = chain_constraints(constraints, bonds)
+        constraints = cluster_constraints(triples, len(masses))
     plan = plan_mod.build_plan(force, system)
     n = plan.num_particles
     counts = neighbors.choose_cell_grid(plan.box0, plan.cutoff, n,
@@ -121,7 +133,9 @@ def main():
     gvals = torch.as_tensor(plan.global_defaults, device=dev).to(f32)
     p = torch.as_tensor(pos_np, device=dev).to(f32)
     v = torch.as_tensor(vel_np, device=dev).to(f32)
-    print(f"md: {n} atoms{' (solute path)' if args.solute else ''}, "
+    path = (" (constrained solute)" if args.constrained
+            else " (solute path)" if args.solute else "")
+    print(f"md: {n} atoms{path}, "
           f"config {run.config}")
 
     # warm-up: both window lengths' graphs are captured

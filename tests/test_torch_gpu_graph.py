@@ -4,8 +4,9 @@
 captured CUDA graph; ``run.eager`` runs the same body without it.  On the
 benchmark's rigid-water box (23,289 atoms, pair_column, SETTLE; under PME,
 under LJPME and through pme_pipeline="grid") and on the solute box
-(pair_cell, bonds, M-SHAKE) the two give positions and velocities equal
-to the bit, and energies within 1e-12 relative (the exclusion rows'
+(pair_cell, bonds, M-SHAKE; and with the chain's bonds as constraints,
+one 11-wide cluster solved by CGLS) the two give positions and velocities
+equal to the bit, and energies within 1e-12 relative (the exclusion rows'
 float64 ``index_add_`` of the final evaluation may sum in another order).
 Marked ``gpu``; they skip (from inside the fixture) where no CUDA
 device is present.  On a machine with an H100:
@@ -23,9 +24,12 @@ from nonbondedslicing_tpu_torch.ops import engine as tengine
 from nonbondedslicing_tpu_torch.ops import plan as tplan
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
+from nonbondedslicing_tpu_torch.runtime.constraints import \
+    cluster_constraints
+
 from port_systems import (DT_PS, N_MOLECULES, STATE_FILE, WATER_MASSES,
                           build_solute_system, build_system,
-                          solute_velocities)
+                          chain_constraints, solute_velocities)
 
 pytestmark = pytest.mark.gpu
 
@@ -205,15 +209,17 @@ def test_graph_mixed_precision(rigid):
     assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
 
 
-def test_graph_solute_within_tolerance(cuda):
-    """The solute box (pair_cell, bonds, the gather constrainer): the
-    graph against the eager body over two windows, positions and
-    velocities to the bit (the bonds, the 1-4s and M-SHAKE sum each atom's
-    terms in a fixed order, without atomics)."""
+def _solute_graph_against_eager(cuda, constrained):
+    """The solute box's graph against its eager body over two windows:
+    positions and velocities to the bit, the same launches counted."""
     _, _, box_len, _ = build_system(nbt)
     blob = np.load(STATE_FILE)
     (system, force, pos_np, masses, constraints, bonds,
      kept) = build_solute_system(nbt, blob["positions"], box_len)
+    if constrained:
+        triples, bonds = chain_constraints(constraints, bonds)
+        constraints = cluster_constraints(triples, len(masses))
+        assert constraints[0].shape[1] == 11
     plan = tplan.build_plan(force, system)
     run = make_md_step(plan, masses, dt=DT_PS, cell_capacity=CAPACITY,
                        constraints=constraints, bonds=bonds)
@@ -236,3 +242,19 @@ def test_graph_solute_within_tolerance(cuda):
     assert run.stats["replays"] == 2
     assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
     assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+
+
+def test_graph_solute_within_tolerance(cuda):
+    """The solute box (pair_cell, bonds, the gather constrainer): the
+    graph against the eager body over two windows, positions and
+    velocities to the bit (the bonds, the 1-4s and M-SHAKE sum each atom's
+    terms in a fixed order, without atomics)."""
+    _solute_graph_against_eager(cuda, constrained=False)
+
+
+def test_graph_constrained_solute_equals_eager(cuda):
+    """The solute box with the chain's 1-2 pairs as constraints (one
+    11-wide cluster, every water triangle padded to it, solved by CGLS)
+    and its 1-3 pairs as bonds: the graph captures the wide solve and
+    equals the eager body to the bit."""
+    _solute_graph_against_eager(cuda, constrained=True)

@@ -387,7 +387,6 @@ def test_spread_is_one_launch_without_an_accumulator(cuda):
     """One spread, float or double: one call counted, one kernel on the card
     (no zeroing, no conversion pass) and one allocation, its grid's (no
     int64 accumulator)."""
-    from torch.profiler import ProfilerActivity, profile
     s = _spread_case_on_card("cubic", cuda)
     kw = dict(lattice=s["lattice"], radius=cuda_pme.spread_radius(
         s["grid"], s["lattice"], s["skin"], s["box"].cpu()))
@@ -409,12 +408,8 @@ def test_spread_is_one_launch_without_an_accumulator(cuda):
         assert (after["allocated_bytes.all.allocated"]
                 - stats["allocated_bytes.all.allocated"]) < (
             grid.numel() * grid.element_size() + 1024)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            cuda_pme.pme_spread(*args, double=double, **kw)
-            torch.cuda.synchronize()
-        kernels = [ev.name for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = _card_kernels(
+            lambda: cuda_pme.pme_spread(*args, double=double, **kw))
         assert len(kernels) == 1 and "spread_owner_kernel" in kernels[0], (
             kernels)
 
@@ -450,11 +445,29 @@ def test_fold_kernel_layouts_equal_plain(cuda, layout):
     assert torch.equal(grid, cuda_pme.pme_fold(W))
 
 
+def _card_kernels(fn):
+    """The names of the kernels the card ran in one call of ``fn``, from a
+    profiler trace.  The profiler has once returned no device event at all
+    for a call whose launch was counted: a trace without one says nothing
+    of the launches, so the call is then profiled once more."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    return kernels
+
+
 def _one_launch(fn, name, kernel_name):
     """One call of ``fn``: one launch counted under ``name``, one kernel on
-    the card (``kernel_name`` in its name) and one allocation, the
+    the card (``kernel_name`` in its name, from a profiler trace; a trace
+    with no device event is taken again, once) and one allocation, the
     output's."""
-    from torch.profiler import ProfilerActivity, profile
     fn()                                       # the build
     torch.cuda.synchronize()
     before = dict(cuda_pme.LAUNCHES)
@@ -468,12 +481,7 @@ def _one_launch(fn, name, kernel_name):
     assert (after["allocated_bytes.all.allocated"]
             - stats["allocated_bytes.all.allocated"]) < (
         out.numel() * out.element_size() + 1024)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [ev.name for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _card_kernels(fn)
     assert len(kernels) == 1 and kernel_name in kernels[0], kernels
 
 

@@ -265,9 +265,9 @@ def test_md_mixed_matches_jax():
 def test_md_graph_flag_for_wide_clusters():
     """A constraint cluster wider than 3 (two waters joined by an O-O
     constraint: 7 coupled constraints) takes the gather constrainer's
-    pseudo-inverse, which a CUDA graph cannot capture: run.config["graph"]
-    is False, so the card runs it eagerly.  Rigid waters alone are
-    graphed."""
+    CGLS solve, which reads nothing back to the host: run.config["graph"]
+    is True, so the card replays its windows as CUDA graphs, as it does
+    for rigid waters alone."""
     from nonbondedslicing_tpu_torch.runtime.constraints import \
         cluster_constraints
     _, plan_t, positions, masses, (cons_p, cons_d), box, _ = _setup()
@@ -280,7 +280,7 @@ def test_md_graph_flag_for_wide_clusters():
     wide = cluster_constraints(triples + [(0, 3, d_oo)], len(masses))
     assert wide[0].shape[1] == 7
     run = make_md_step(plan_t, masses, dt=0.001, constraints=wide)
-    assert run.config["graph"] is False
+    assert run.config["graph"] is True
 
 
 SOLUTE_BOX = 3.0

@@ -23,7 +23,7 @@ from nonbondedslicing_tpu_torch.runtime.constraints import \
     cluster_constraints
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
-from port_systems import BOND_R0, KB, SOLUTE_SITES
+from port_systems import BOND_R0, KB, SOLUTE_SITES, chain_constraints
 from tests.test_torch_md import SOLUTE_BOX, _solute_box
 from tests.test_torch_plan import jax_data_np
 
@@ -36,13 +36,10 @@ def _constrained_chain(out):
     """The solute box with the chain's 1-2 pairs as constraints (added to
     the water triangles, as one cluster list) and its 1-3 pairs as
     harmonic bonds."""
-    system, force, positions, masses, (c_pairs, c_dists), bonds, _ = out
-    triples = [(i, j, d) for pairs, dists in zip(c_pairs, c_dists)
-               for (i, j), d in zip(pairs, dists)]
-    triples += [(i, i + 1, BOND_R0) for i in range(SOLUTE_SITES - 1)]
-    constraints = cluster_constraints(triples, len(masses))
-    bonds = bonds[bonds[:, 1] - bonds[:, 0] == 2]
-    return system, force, positions, masses, constraints, bonds
+    system, force, positions, masses, constraints, bonds, _ = out
+    triples, bonds = chain_constraints(constraints, bonds)
+    return (system, force, positions, masses,
+            cluster_constraints(triples, len(masses)), bonds)
 
 
 def test_md_mixed_solute_matches_jax():

@@ -150,7 +150,32 @@ the last line:
    (b) the native host library (runtime/native.py) built and loaded, its
    dispersion coefficients of the solute box within 1e-8 of the Python
    class loop; (c) examples/lambda_sweep_torch.py on the card, its
-   linearity assertion included.
+   linearity assertion included;
+14. the sharded evaluation, ``parallel/mesh.make_sharded_compute``, in
+   spawned ranks (``tests/torch_parallel_cases.run_ranks``: a file://
+   rendezvous in a temporary directory; a rank that fails or is still
+   running after SHARD_TIMEOUT seconds fails the phase, named; the kernels
+   are built once, in phase 2, before any rank starts): the rigid box under
+   PME, CutoffPeriodic and LJPME and the solute box under PME, in float32
+   through the kernel route, pair_cell over each rank's range of cells.
+   First pair_cell over the first half of the cells against its plain twin
+   (and timed beside the whole grid), and the same evaluations on this
+   card alone in float32 and float64.  (a) Two ranks on this card over
+   gloo (CUDA tensors): each rank's call launches its pair_cell once
+   (counted), every rank returns the same result to the bit, the
+   direct-space forces equal the single card's to the bit, the total
+   forces within 1e-5 of max|F| of its (the atom-space PME adds the ranks'
+   grids in another order), energy and dE/dlambda within 1e-6 relative,
+   and against float64 phase 4's gates (phase 11's cutoff exception); ms a
+   call of both, the bytes of each all_reduce; (c) in the same two ranks,
+   make_multichip_md_step on phase 12's 1,596-atom water cube (all-pairs
+   rows split over the ranks), 10 steps of 1 fs in float64 from the cut's
+   velocities, against a loop of make_compute with the same leapfrog on
+   this card: positions within 1e-9 nm (the two differ only in the order
+   of float64 sums); (b) one rank per card over NCCL (one rank on a
+   one-card machine) with (a)'s gates.  ``python3 chip_smoke.py
+   --sharded`` runs phases 1, 2 and 14 only (the call to make on several
+   cards).
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -260,6 +285,12 @@ DROP_DERIV_FLOOR = 2 * DROP_DERIV_ROUNDING / TOL_EVAL_DERIV   # 24 kJ/mol
 DROP_JUMP = 2.5           # kJ/mol/nm: the reaction-field force jump of one
                           # pair at the cutoff (two oxygens: 2.24)
 GENERIC_REPS = 5          # timed make_compute calls per method
+SHARD_TIMEOUT = 240.0     # s, phase 14: a spawn of ranks, start to end
+SHARD_MD_STEPS = 10       # phase 14 (c): make_multichip_md_step
+SHARD_MD_DT = 0.001       # ps
+TOL_SHARD_FORCE = 1e-5    # of max|F|, sharded against the single card, f32
+TOL_SHARD_ENERGY = 1e-6   # relative energy and dE/dlambda, the same
+TOL_SHARD_MD = 1e-9       # nm, phase 14 (c) in float64
 CONTEXT_TIMED_CHUNKS = 3  # phase 12: step() chunks after a warm-up chunk
 CONTEXT_ALTERNATED_CHUNKS = 8   # phase 12 (a): timed chunks of the Context
                                 # and of make_md_step, in turns
@@ -372,12 +403,21 @@ ENTRIES = (
      "getstate"),
 ) + tuple((k + "_constrained", k, "constrained", "constrained")
           for k in ("pair_cell", "pair_cell_energies", "pme_spread",
-                    "pme_spread_energies", "pme_interp"))
+                    "pme_spread_energies", "pme_interp")) + (
+    ("pair_cell_energies_sharded", "pair_cell_energies", "sharded",
+     "sharded"),
+    ("pair_cell_energies_sharded_rf", "pair_cell_energies", "sharded",
+     "sharded_rf"),
+    ("pair_cell_ljpme_energies_sharded", "pair_cell_ljpme_energies",
+     "sharded", "sharded"),
+)
 # the kernels each run must launch; it must launch no other ("generic":
 # phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode;
 # phase 12: "context" and "context_solute" the step() calls of a Context on
 # either box, "ewald" bare Ewald's MD, "getstate" the float32 getState
-# calls, K3; "simple" the per-step rebuild's steps, which launch none)
+# calls, K3; "simple" the per-step rebuild's steps, which launch none;
+# phase 14: "sharded" the ranks' make_sharded_compute calls in Ewald mode,
+# "sharded_rf" in reaction-field mode, pair_cell over each rank's cells)
 RUN_KERNELS = {
     "generic": {"pair_cell_energies", "pair_cell_ljpme_energies"},
     "generic_rf": {"pair_cell_energies"},
@@ -398,6 +438,8 @@ RUN_KERNELS = {
     "ewald": {"pair_column", "pair_column_energies"},
     "getstate": {"pair_cell_energies"},
     "simple": set(),
+    "sharded": {"pair_cell_energies", "pair_cell_ljpme_energies"},
+    "sharded_rf": {"pair_cell_energies"},
 }
 RUN_KERNELS["context"] = RUN_KERNELS["rigid"]
 RUN_KERNELS["context_solute"] = RUN_KERNELS["solute"]
@@ -637,41 +679,46 @@ def against_parent(name, key, kernel_fn, parent_fn, reps):
     return out
 
 
-def pair_counts(slot_pos, slot_ids, slot_excl, box, cutoff, n_real, counts):
+def pair_counts(slot_pos, slot_ids, slot_excl, box, cutoff, n_real, counts,
+                cells=None):
     """(pairs within the cutoff that are not excluded, excluded pairs) among
     the real slots of every 27-cell neighbourhood, each unordered pair once,
-    by minimum image in the rectangular ``box``."""
+    by minimum image in the rectangular ``box``; with ``cells`` = (begin,
+    end), half the pairs that the rows of those home cells take part in
+    (the work of a cell kernel launched over that range)."""
     import torch
     g, _, C = slot_pos.shape
+    lo, hi = cells or (0, g)
     lengths = torch.diagonal(box).reshape(1, 3, 1, 1)
     grid_pos = slot_pos.reshape(*counts, 3, C)
     grid_ids = slot_ids.reshape(*counts, C)
-    real = slot_ids < n_real
+    real = slot_ids[lo:hi] < n_real
     eye = torch.eye(C, dtype=torch.bool, device=slot_pos.device)
     n_pair = n_excl = 0
     for o in range(27):
         roll = dict(shifts=(1 - o // 9, 1 - (o // 3) % 3, 1 - o % 3),
                     dims=(0, 1, 2))
-        cand = torch.roll(grid_pos, **roll).reshape(g, 3, C)
-        cids = torch.roll(grid_ids, **roll).reshape(g, C)
-        d = slot_pos[:, :, :, None] - cand[:, :, None, :]
+        cand = torch.roll(grid_pos, **roll).reshape(g, 3, C)[lo:hi]
+        cids = torch.roll(grid_ids, **roll).reshape(g, C)[lo:hi]
+        d = slot_pos[lo:hi, :, :, None] - cand[:, :, None, :]
         d = d - lengths * torch.round(d / lengths)
         near = torch.sum(d * d, dim=1) < cutoff * cutoff
         both = real[:, :, None] & (cids < n_real)[:, None, :]
         if o == 13:
             both = both & ~eye
-        excluded = torch.any(slot_excl[:, :, :, None] == cids[:, None, None, :],
-                             dim=1)
+        excluded = torch.any(slot_excl[lo:hi, :, :, None]
+                             == cids[:, None, None, :], dim=1)
         n_pair += int((both & ~excluded & near).sum())
         n_excl += int((both & excluded).sum())
     return n_pair // 2, n_excl // 2
 
 
-def pair_bound(pc, energies, n_pair, n_excl, cell_kernel):
+def pair_bound(pc, energies, n_pair, n_excl, cell_kernel, out_cells=None):
     """Bound of one pair-kernel call: the pairs within the cutoff (and, for
     the cell kernel, their minimum image and the excluded pairs'
     corrections; under LJPME the dispersion terms of both), and the slot
-    tensors read and the outputs written once."""
+    tensors read and the outputs (of ``out_cells`` home cells, default all)
+    written once."""
     ops = n_pair * (PAIR_OPS + (PAIR_ENERGY_OPS if energies else 0))
     if pc.ljpme:
         ops += n_pair * (LJPME_PAIR_OPS
@@ -683,9 +730,10 @@ def pair_bound(pc, energies, n_pair, n_excl, cell_kernel):
             ops += n_excl * (LJPME_EXCL_OPS
                              + (LJPME_EXCL_ENERGY_OPS if energies else 0))
     g, C, nsub = pc.n_cells, pc.capacity, pc.nsub
+    out = g if out_cells is None else out_cells
     nbytes = (4 * g * C * (3 + 3 + 1 + 1 + pc.emax) + 4 * 2 * nsub * nsub
-              + 4 * 9 + 4 * g * 3 * C
-              + (4 * g * 2 * nsub * nsub if energies else 0))
+              + 4 * 9 + 4 * out * 3 * C
+              + (4 * out * 2 * nsub * nsub if energies else 0))
     return bound(ops, nbytes)
 
 
@@ -1427,12 +1475,15 @@ def generic_pair_config(plan):
         dispersion_alpha=plan.dispersion_alpha)
 
 
-def generic_pair_check(name, plan, args32, reps, dev):
+def generic_pair_check(name, plan, args32, reps, dev, cells=None):
     """``pair_cell`` with energies at the generic engine's shapes (its slot
     table of the float32 inputs ``args32``: positions, box, globals and
-    data on the card) against its plain twin, with its bound."""
+    data on the card) against its plain twin, with its bound; over the
+    home cells ``cells`` = (begin, count) where given."""
+    import functools
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_direct, kernel_direct
+    from nonbondedslicing_tpu_torch.ops.cuda_direct import pair_launch_shape
     from nonbondedslicing_tpu_torch.ops import params as params_mod
     pc = generic_pair_config(plan)
     pos, box, gvals, data = args32
@@ -1444,16 +1495,62 @@ def generic_pair_check(name, plan, args32, reps, dev):
     sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64, device=dev)
     args = (*tensors, lam[:, 0][sl_tab].contiguous(),
             lam[:, 1][sl_tab].contiguous(), box, pc, True, plan.num_particles)
-    out = pair_kernel_check(name, cuda_direct.pair_cell,
-                            cuda_direct.pair_cell_plain, args, pc, reps,
-                            cell_kernel=True)
+    out = pair_kernel_check(
+        name, functools.partial(cuda_direct.pair_cell, cells=cells),
+        functools.partial(cuda_direct.pair_cell_plain, cells=cells), args,
+        pc, reps, cell_kernel=True)
+    lo, hi = cuda_direct.cell_range(pc, cells)
+    if cells is not None:
+        print(f"{name}: the range's {hi - lo} cells, "
+              f"{(hi - lo) * pair_launch_shape(pc, True, True)['row_blocks']}"
+              f" blocks")
+        ms, out["whole_grid_ms"] = timed_pair(
+            lambda: cuda_direct.pair_cell(*args, cells=cells),
+            lambda: cuda_direct.pair_cell(*args), reps, what=None)
+        print(f"{name}: {ms:.4f} ms beside the whole grid's "
+              f"{out['whole_grid_ms']:.4f} ms ({ms / out['whole_grid_ms']:.3f}"
+              f" of it), in turns")
     n_pair, n_excl = pair_counts(tensors[0], tensors[3], tensors[4], box,
-                                 plan.cutoff, plan.num_particles, pc.counts)
-    out["bound_ms"], out["bound_by"] = pair_bound(pc, True, n_pair, n_excl,
-                                                  cell_kernel=True)
+                                 plan.cutoff, plan.num_particles, pc.counts,
+                                 (lo, hi))
+    out["bound_ms"], out["bound_by"] = pair_bound(
+        pc, True, n_pair, n_excl, cell_kernel=True, out_cells=hi - lo)
     print(f"{name}: {n_pair} pairs within the cutoff, {n_excl} excluded "
           f"pairs; bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
+
+
+def gates_against_f64(label, plan, pc, args32, out32, out64):
+    """``card_gates`` of a float32 evaluation through the kernel route
+    (``pc``: its cell kernel's configuration, ``args32`` its inputs)
+    against float64.  Under the reaction field, whose force jumps at the
+    cutoff by k qi qj (1/rc^2 - 2 krf rc), atoms with a pair within 1e-6 nm
+    of the cutoff (within float32's reach of it: such a pair may lie on
+    either side in float32 and float64) are held to the jump instead."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, kernel_direct
+    from nonbondedslicing_tpu_torch.ops import params as params_mod
+    from nonbondedslicing_tpu_torch.utils.constants import ONE_4PI_EPS0
+    skip = None
+    if pc.mode == cuda_direct.MODE_REACTION_FIELD:
+        _, tensors, _ = kernel_direct.cell_slots(
+            args32[0], *params_mod.particle_params(args32[3], args32[2]),
+            args32[3]["subsets"], args32[3]["exclusion_list"], args32[1],
+            pc.counts, pc.capacity)
+        skip, per_atom = near_cutoff_atoms(
+            tensors[0], tensors[3], args32[1], plan.cutoff,
+            plan.num_particles, pc.counts, 1e-6)
+        qmax = float(np.abs(plan.base_params[:, 0]).max())
+        jump = per_atom * ONE_4PI_EPS0 * qmax * qmax * abs(
+            plan.cutoff ** -2 - 2.0 * pc.krf * plan.cutoff) + 0.1
+        print(f"{label}: {int(skip.sum())} atoms with a pair within 1e-6 nm "
+              f"of the cutoff (at most {per_atom} an atom); the force jump "
+              f"there is at most {jump:.3f} kJ/mol/nm")
+    skipped_err = card_gates(label, plan, out32, out64, plan.global_defaults,
+                             skip)
+    if skip is not None:
+        check(skipped_err <= jump,
+              f"{label}: atoms at the cutoff within the jump, max|dF| "
+              f"{skipped_err:.3e} <= {jump:.3f}")
 
 
 def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
@@ -1464,22 +1561,11 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
     import dataclasses
     import torch
     import nonbondedslicing_tpu_torch as nbt
-    from nonbondedslicing_tpu_torch.ops import (cuda_direct, cuda_pme,
-                                                kernel_direct)
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, kernel_direct
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import params as params_mod
     from nonbondedslicing_tpu_torch.ops import plan as plan_mod
-    from nonbondedslicing_tpu_torch.utils.constants import ONE_4PI_EPS0
     f32, f64 = torch.float32, torch.float64
-
-    def launches():
-        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
-
-    def inputs(plan, p_np, dtype):
-        """Positions, box, globals and data on the card in ``dtype``."""
-        t = lambda x: torch.as_tensor(np.asarray(x), device=dev).to(dtype)
-        return (t(p_np), t(plan.box0), t(plan.global_defaults),
-                engine_mod.plan_data(plan, device=dev, dtype=dtype))
 
     t0 = time.time()
     configs = []
@@ -1496,7 +1582,7 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
     # ---- full width through the kernel route, against float64 on the card
     reset_launches()
     evaluated = {}
-    by_mode = {run: dict.fromkeys(launches(), 0)
+    by_mode = {run: dict.fromkeys(all_launches(), 0)
                for run in ("generic", "generic_rf")}
     for label, plan, p_np in configs:
         compute = engine_mod.make_compute(plan, True, True, with_aux=True)
@@ -1507,12 +1593,12 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
               f"slots, nsub {pc.nsub}, emax {pc.emax}, "
               f"{'Ewald' if pc.mode else 'reaction-field'} mode"
               + (", LJPME" if pc.ljpme else ""))
-        args32 = inputs(plan, p_np, f32)
-        before = launches()
+        args32 = card_inputs(plan, p_np, f32, dev)
+        before = all_launches()
         t0 = time.time()
         e32, g32, aux = compute(*args32)
         torch.cuda.synchronize()
-        made = {k: v - before[k] for k, v in launches().items()
+        made = {k: v - before[k] for k, v in all_launches().items()
                 if v != before[k]}
         key = "pair_cell_ljpme_energies" if pc.ljpme else "pair_cell_energies"
         check(made == {key: 1}, f"generic {label}: one call launched {made} "
@@ -1524,41 +1610,18 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
         check(int(aux["overflow"]) == 0 and float(aux["excl_span"]) < 1.0,
               f"generic {label}: overflow {int(aux['overflow'])} == 0, "
               f"excluded pairs span {float(aux['excl_span']):.4f} < 1 cell")
-        before = launches()
+        before = all_launches()
         t0 = time.time()
-        e64, g64, _ = compute(*inputs(plan, p_np, f64))
+        e64, g64, _ = compute(*card_inputs(plan, p_np, f64, dev))
         torch.cuda.synchronize()
-        check(launches() == before,
+        check(all_launches() == before,
               f"generic {label}: float64 takes the cell engine and "
               f"corrections, no kernel ({time.time() - t0:.1f} s)")
-        skip = None
-        if pc.mode == cuda_direct.MODE_REACTION_FIELD:
-            # the reaction-field force jumps at the cutoff by
-            # k qi qj (1/rc^2 - 2 krf rc): a pair within float32's reach of
-            # it may lie on either side in float32 and float64
-            _, tensors, _ = kernel_direct.cell_slots(
-                args32[0], *params_mod.particle_params(args32[3], args32[2]),
-                args32[3]["subsets"], args32[3]["exclusion_list"], args32[1],
-                pc.counts, pc.capacity)
-            skip, per_atom = near_cutoff_atoms(
-                tensors[0], tensors[3], args32[1], plan.cutoff,
-                plan.num_particles, pc.counts, 1e-6)
-            qmax = float(np.abs(plan.base_params[:, 0]).max())
-            jump = per_atom * ONE_4PI_EPS0 * qmax * qmax * abs(
-                plan.cutoff ** -2 - 2.0 * pc.krf * plan.cutoff) + 0.1
-            print(f"generic {label}: {int(skip.sum())} atoms with a pair "
-                  f"within 1e-6 nm of the cutoff (at most {per_atom} an "
-                  f"atom); the force jump there is at most {jump:.3f} "
-                  f"kJ/mol/nm")
-        skipped_err = card_gates(f"generic {label}", plan, (e32, g32),
-                                 (e64, g64), plan.global_defaults, skip)
-        if skip is not None:
-            check(skipped_err <= jump,
-                  f"generic {label}: atoms at the cutoff within the jump, "
-                  f"max|dF| {skipped_err:.3e} <= {jump:.3f}")
+        gates_against_f64(f"generic {label}", plan, pc, args32, (e32, g32),
+                          (e64, g64))
         evaluated[label] = dict(compute=compute, plan=plan, pc=pc,
                                 args32=args32, out32=(e32, g32))
-    total = launches()
+    total = all_launches()
     check(all(total[k] == by_mode["generic"][k] + by_mode["generic_rf"][k]
               for k in total),
           "generic: every launch of the run falls to one mode")
@@ -1627,9 +1690,9 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
         check(compute.route == "all_pairs",
               f"generic drop {method}: {plan.num_particles} atoms (the chain "
               f"and the waters within {CLUSTER_NM} nm of it), all pairs")
-        args32 = inputs(plan, out[2], f32)
+        args32 = card_inputs(plan, out[2], f32, dev)
         r32 = compute(*args32)
-        r64 = compute(*inputs(plan, out[2], f64))
+        r64 = compute(*card_inputs(plan, out[2], f64, dev))
         skip = None
         if method == "CutoffNonPeriodic":
             # the reaction-field force jumps at the cutoff (phase 11 above)
@@ -1651,7 +1714,7 @@ def generic_engine(dev, card, reset_launches, results, run_launches, pos_np,
         ms = call_ms(lambda: compute(*args32))
         print(f"generic drop {method}: make_compute {ms:.3f} ms a call "
               f"({plan.num_particles} atoms, {card})")
-    check(not any(launches().values()),
+    check(not any(all_launches().values()),
           "generic drop: no hand-written kernel on the all-pairs route")
 
 
@@ -2367,6 +2430,289 @@ def constrained_phase(dev, card, reset_launches, results, run_launches,
           f"({time.time() - t0:.1f} s)")
 
 
+def card_inputs(plan, p_np, dtype, dev):
+    """Positions, box, globals and data of ``plan`` on ``dev`` in
+    ``dtype``."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+
+    return (t(p_np), t(plan.box0), t(plan.global_defaults),
+            engine_mod.plan_data(plan, device=dev, dtype=dtype))
+
+
+def all_launches():
+    """Every hand-written kernel's launch count, by variant."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+
+
+def sharded_rank(group, device, configs, md):
+    """Phase 14's work in one rank of ``group`` on ``device`` (called by
+    ``torch_parallel_cases.run_ranks``): each configuration (label, plan,
+    positions) through ``make_sharded_compute`` in float32 once, with the
+    kernels' launches of that call counted (the counts are set to 0 just
+    before); then, not counted, its direct space alone, the collectives of
+    one call (shape, dtype, bytes of each all_reduce) and its ms a call;
+    with ``md`` (plan, positions, velocities, masses, steps, dt) the
+    harness ``make_multichip_md_step`` in float64.  Returns numpy arrays
+    and numbers."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.parallel import collectives, mesh
+    dev = torch.device(device)
+    f32, f64 = torch.float32, torch.float64
+    computes = []
+    for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    out = {}
+    for label, plan, p_np in configs:
+        compute = mesh.make_sharded_compute(plan, group)
+        args = card_inputs(plan, p_np, f32, dev)
+        before = all_launches()
+        e, f = compute(*args)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            route=compute.route, e=e.cpu().numpy(), f=f.cpu().numpy(),
+            launched={k: v - before[k] for k, v in all_launches().items()
+                      if v != before[k]})
+        computes.append((label, plan, compute, args))
+    for label, plan, compute, args in computes:
+        direct = engine_mod.make_compute(plan, True, False,
+                                         neighbor=compute.route, shard=group)
+        out[label]["f_direct"] = direct(*args)[1].cpu().numpy()
+        reduced = []
+        real = collectives.all_reduce
+
+        def counted(tensor, g):
+            reduced.append((tuple(tensor.shape), str(tensor.dtype),
+                            tensor.numel() * tensor.element_size()))
+            return real(tensor, g)
+
+        collectives.all_reduce = counted
+        try:
+            compute(*args)
+        finally:
+            collectives.all_reduce = real
+        out[label]["all_reduce"] = reduced
+        out[label]["ms"] = call_ms(lambda: compute(*args))
+    if md is not None:
+        plan, p_np, v_np, masses, steps, dt = md
+        step = mesh.make_multichip_md_step(plan, masses, dt, group,
+                                           dtype=f64)
+        pos, box, gvals, data = card_inputs(plan, p_np, f64, dev)
+        vel = torch.as_tensor(v_np, device=dev).to(f64)
+        energies = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            pos, vel, energy = step(pos, vel, box, gvals, data)
+            energies.append(float(energy))
+        out["md"] = dict(route=mesh.make_sharded_compute(plan, group).route,
+                         pos=pos.cpu().numpy(), vel=vel.cpu().numpy(),
+                         energies=energies,
+                         ms=1e3 * (time.perf_counter() - t0) / steps)
+    return out
+
+
+def shard_gates(label, plan, found, single):
+    """A sharded float32 evaluation ``found`` (a rank's results) against the
+    single-card one ``single`` (slice energies, forces, direct-space
+    forces) on the same inputs: direct-space forces equal to the bit, total
+    forces within TOL_SHARD_FORCE of max|F| (the atom-space PME adds the
+    ranks' grids in another order, D4, D10), the energy and every dE/dlambda
+    within TOL_SHARD_ENERGY relative (denominator at least 1 kJ/mol)."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    e1, f1, fd1 = (x.cpu() for x in single)
+    e, f = torch.as_tensor(found["e"]), torch.as_tensor(found["f"])
+    check(torch.equal(torch.as_tensor(found["f_direct"]), fd1),
+          f"{label}: direct-space forces equal to the single card's to the "
+          f"bit")
+    fmax = float(f1.abs().max())
+    f_err = float((f - f1).abs().max()) / fmax
+    check(f_err <= TOL_SHARD_FORCE,
+          f"{label}: forces {f_err:.3e} of max|F| {fmax:.1f} from the single "
+          f"card's <= {TOL_SHARD_FORCE}")
+    lam = slice_lambdas(plan.lam_source,
+                        torch.as_tensor(plan.global_defaults,
+                                        dtype=torch.float64))
+    E, E1 = (float(engine_mod.contract_energy(x, lam)) for x in (e, e1))
+    d, d1 = (engine_mod.parameter_derivatives(x, plan.deriv_mask)
+             for x in (e, e1))
+    rel_e = abs(E - E1) / abs(E1)
+    rel_d = float(((d - d1).abs() / d1.abs().clamp(min=1.0)).max()
+                  if d.numel() else 0.0)
+    check(rel_e <= TOL_SHARD_ENERGY and rel_d <= TOL_SHARD_ENERGY,
+          f"{label}: energy {rel_e:.3e}, dE/dlambda {rel_d:.3e} relative "
+          f"from the single card's <= {TOL_SHARD_ENERGY}")
+
+
+def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
+                  reps):
+    """Phase 14: ``parallel/mesh.make_sharded_compute`` at full width in
+    spawned ranks (see the module docstring): (a) two ranks on this card
+    over gloo, with (c) the MD harness; (b) a rank per card over NCCL."""
+    import tempfile
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_parallel_cases
+    f32, f64 = torch.float32, torch.float64
+
+    t0 = time.time()
+    configs = []
+    for method in ("PME", "CutoffPeriodic", "LJPME"):
+        system, force, _, _ = build_system(nbt, method)
+        configs.append((f"rigid {method}", plan_mod.build_plan(force, system),
+                        pos_np))
+    out = build_solute_system(nbt, pos_np, box_len)
+    configs.append(("solute PME", plan_mod.build_plan(out[1], out[0]),
+                    out[2]))
+    # the single card's evaluations of the same inputs, and float64
+    single = {}
+    for label, plan, p_np in configs:
+        args32 = card_inputs(plan, p_np, f32, dev)
+        compute = engine_mod.make_compute(plan, True, True, with_aux=True)
+        e1, f1, aux = compute(*args32)
+        check(compute.route == "pallas" and int(aux["overflow"]) == 0
+              and float(aux["excl_span"]) < 1.0,
+              f"sharded {label}: the single card's make_compute takes the "
+              f"kernel route, overflow {int(aux['overflow'])}, excluded "
+              f"pairs span {float(aux['excl_span']):.4f} < 1 cell")
+        fd1 = engine_mod.make_compute(plan, True, False)(*args32)[1]
+        e64, f64_ = compute(*card_inputs(plan, p_np, f64, dev))[:2]
+        single[label] = dict(
+            out=(e1, f1, fd1), f64=(e64, f64_), args32=args32,
+            pc=generic_pair_config(plan),
+            ms=call_ms(lambda: compute(*args32)))
+    # the MD harness's system: the per-step rebuild's cube, all pairs
+    c_pos, c_vel, c_edge = water_cube(pos_np, vel_np, box_len, CUBE_NM)
+    c_system, c_force, _ = water_system(nbt, len(c_pos) // 3, c_edge)
+    c_plan = plan_mod.build_plan(c_force, c_system)
+    c_masses = np.tile(WATER_MASSES, len(c_pos) // 3)
+    md = (c_plan, c_pos, c_vel, c_masses, SHARD_MD_STEPS, SHARD_MD_DT)
+    print(f"sharded: {len(configs)} plans, their single-card evaluations "
+          f"in float32 and float64, in {time.time() - t0:.1f} s")
+
+    # ---- pair_cell over the first rank's range at world 2 against its
+    # plain twin, and beside the whole grid
+    plans = {label: plan for label, plan, _ in configs}
+    for name, label in (("pair_cell_energies_sharded", "rigid PME"),
+                        ("pair_cell_energies_sharded_rf",
+                         "rigid CutoffPeriodic"),
+                        ("pair_cell_ljpme_energies_sharded", "rigid LJPME")):
+        s = single[label]
+        half = -(-s["pc"].n_cells // 2)
+        results[name] = generic_pair_check(
+            f"{name} ({label}, cells [0, {half}) of {s['pc'].n_cells})",
+            plans[label], s["args32"], reps, dev, cells=(0, half))
+
+    def gates(tag, ranks):
+        """The gates of (a) and (b) over every rank's results."""
+        world = len(ranks)
+        for label, plan, _ in configs:
+            found = [r["eval"][label] for r in ranks]
+            for r, x in enumerate(found[1:], 1):
+                check(all(np.array_equal(x[k], found[0][k])
+                          for k in ("e", "f", "f_direct")),
+                      f"{tag} {label}: rank {r} returned rank 0's result to "
+                      f"the bit")
+            check(found[0]["route"] == "pallas",
+                  f"{tag} {label}: make_sharded_compute takes the kernel "
+                  f"route ({found[0]['route']}) on {world} ranks")
+            s = single[label]
+            shard_gates(f"{tag} {label}", plan, found[0], s["out"])
+            gates_against_f64(f"{tag} {label} against f64", plan, s["pc"],
+                              s["args32"],
+                              (torch.as_tensor(found[0]["e"], device=dev),
+                               torch.as_tensor(found[0]["f"], device=dev)),
+                              s["f64"])
+            reduced = [f"{shape} {dtype}: {nbytes}"
+                       for shape, dtype, nbytes in found[0]["all_reduce"]]
+            total = sum(x[2] for x in found[0]["all_reduce"])
+            print(f"{tag} {label}: {[round(r['ms'], 3) for r in found]} ms a "
+                  f"call on ranks 0..{world - 1} (median of {GENERIC_REPS}, "
+                  f"CUDA events), single card {s['ms']:.3f} ms ({card}); "
+                  f"{len(reduced)} all_reduce a call, {total} bytes: "
+                  f"{reduced}")
+
+    def launched(tag, ranks):
+        """The launches of the counted run, summed over the ranks, by run:
+        'sharded' (Ewald mode), 'sharded_rf' (reaction field)."""
+        runs = {run: dict.fromkeys(all_launches(), 0)
+                for run in ("sharded", "sharded_rf")}
+        for label, _, _ in configs:
+            run = "sharded_rf" if "CutoffPeriodic" in label else "sharded"
+            per_rank = [r["eval"][label]["launched"] for r in ranks]
+            key = ("pair_cell_ljpme_energies" if "LJPME" in label
+                   else "pair_cell_energies")
+            check(all(x == {key: 1} for x in per_rank),
+                  f"{tag} {label}: each rank's call launched {per_rank}: "
+                  f"{key} once (over its range of cells), nothing else")
+            for x in per_rank:
+                for k, v in x.items():
+                    runs[run][k] += v
+        for run, counted in runs.items():
+            check_launches(f"{tag} {run}", run, counted)
+        return runs
+
+    # ---- (a) two ranks on this card over gloo, and (c) the MD harness
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = torch_parallel_cases.run_ranks(
+            2, tmp, [("eval", "chip_smoke:sharded_rank",
+                      dict(configs=configs, md=md))],
+            backend="gloo", devices=[str(dev)] * 2, timeout=SHARD_TIMEOUT)
+    print(f"sharded (a): 2 ranks over gloo on {dev} in "
+          f"{time.time() - t0:.1f} s")
+    gates("sharded (a) gloo", ranks)
+    for run, counted in launched("sharded (a) gloo", ranks).items():
+        run_launches[run] = counted
+
+    # (c): against the single card's loop of make_compute, same leapfrog
+    found = [r["eval"]["md"] for r in ranks]
+    check(found[0]["route"] == "all_pairs" and all(
+        np.array_equal(x["pos"], found[0]["pos"]) for x in found),
+        f"sharded (c): {c_plan.num_particles} atoms in a {c_edge:.4f} nm box, "
+        f"all-pairs rows over 2 ranks, both ranks at the same positions")
+    compute = engine_mod.make_compute(c_plan, True, True)
+    p, box, gvals, data = card_inputs(c_plan, c_pos, f64, dev)
+    v = torch.as_tensor(c_vel, device=dev).to(f64)
+    inv_m = torch.as_tensor(1.0 / c_masses, device=dev).to(f64)[:, None]
+    for _ in range(SHARD_MD_STEPS):
+        v = v + SHARD_MD_DT * compute(p, box, gvals, data)[1] * inv_m
+        p = p + SHARD_MD_DT * v
+    err = float((torch.as_tensor(found[0]["pos"]) - p.cpu()).abs().max())
+    check(err <= TOL_SHARD_MD and all(map(math.isfinite,
+                                          found[0]["energies"])),
+          f"sharded (c): make_multichip_md_step, {SHARD_MD_STEPS} steps of "
+          f"{SHARD_MD_DT} ps in float64 ({found[0]['ms']:.2f} ms a step), "
+          f"positions {err:.3e} nm from the single card's loop <= "
+          f"{TOL_SHARD_MD}")
+
+    # ---- (b) a rank per card over NCCL
+    world = torch.cuda.device_count()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = torch_parallel_cases.run_ranks(
+            world, tmp, [("eval", "chip_smoke:sharded_rank",
+                          dict(configs=configs, md=None))],
+            backend="nccl", devices=[f"cuda:{r}" for r in range(world)],
+            timeout=SHARD_TIMEOUT)
+    print(f"sharded (b): {world} rank(s) over NCCL, one a card, in "
+          f"{time.time() - t0:.1f} s")
+    gates("sharded (b) nccl", ranks)
+    launched("sharded (b) nccl", ranks)
+
+
 def main():
     if not os.path.isdir(PACKAGE) or not os.path.exists(STATE_FILE):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2424,6 +2770,20 @@ def main():
         for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
             for key in counts:
                 counts[key] = 0
+
+    if "--sharded" in sys.argv[1:]:
+        # ---- 14 alone
+        _, _, box_len, _ = build_system(nbt)
+        blob = np.load(STATE_FILE)
+        results, run_launches = {}, {}
+        sharded_phase(dev, card, results, run_launches,
+                      np.asarray(blob["positions"], dtype=np.float64),
+                      np.asarray(blob["velocities"], dtype=np.float64),
+                      box_len, 20)
+        print(f"total: {time.time() - t_start:.1f} s")
+        print_last_lines(kind, results, run_launches,
+                         [e for e in ENTRIES if e[2] == "sharded"])
+        return 0
 
     # ---- system, plan, state
     t0 = time.time()
@@ -2870,19 +3230,30 @@ def main():
     constrained_phase(dev, card, reset_launches, results, run_launches,
                       pos_np, vel_np, box_len, s_capacity, solute_ms)
     print(f"constrained: {time.time() - t0:.1f} s")
-    print(f"total: {time.time() - t_start:.1f} s")
 
+    # ---- 14. the sharded evaluation in spawned ranks
+    t0 = time.time()
+    sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
+                  reps)
+    print(f"sharded: {time.time() - t0:.1f} s")
+    print(f"total: {time.time() - t_start:.1f} s")
+    print_last_lines(kind, results, run_launches, ENTRIES)
+    return 0
+
+
+def print_last_lines(kind, results, run_launches, entries):
+    """The kernels line of ``entries`` and the last line."""
+    import torch
     print(json.dumps({"kernels": [
         dict(name=name, path=path, route="cuda",
              source="nonbondedslicing_tpu_torch/" + KERNELS[kernel][0],
              replaces=KERNELS[kernel][1],
              launches=run_launches[run][kernel],
              **{"library_ms": None, **results[name]})
-        for name, kernel, path, run in ENTRIES]}))
+        for name, kernel, path, run in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -79,6 +79,9 @@ struct PairParams {
     // LJPME: the dispersion alpha, 1 / cutoff^6 and the dispersion factor
     // at the cutoff over cutoff^6 (cuda_direct.dispersion_cutoff_terms)
     float dispersion_alpha, inv_cut6, disp_cut;
+    // the cell kernel: the first home cell of the launch (its blocks take
+    // cells cell_begin, cell_begin + 1, ...); 0 where not set
+    int cell_begin;
 };
 
 // How a call is cut into blocks and tiles: row_blocks blocks per home cell,
@@ -712,8 +715,9 @@ __device__ __forceinline__ void store_moments(const Shared& s, int nsub,
     }
 }
 
-// Launches `kernel` over n_cells * row_blocks blocks with its dynamic shared
-// memory (above 48 KB it has to be asked for).
+// Launches `kernel` over n_cells * row_blocks blocks (n_cells: the home
+// cells of the launch) with its dynamic shared memory (above 48 KB it has to
+// be asked for).
 template <typename Kernel, typename... Args>
 inline int launch_rows(Kernel kernel, const LaunchShape& g, int n_cells,
                        cudaStream_t stream, Args... args) {

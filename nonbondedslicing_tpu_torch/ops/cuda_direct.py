@@ -44,7 +44,14 @@ over (home subset a, partner subset b) with weight 1/2 (every pair is
 visited from both sides).  Readers sum the panels (in float64): the plain
 twins give one panel per cell, the kernels one per block (``row_blocks``
 blocks per cell, ``pair_launch_shape``).  Slice energies are then m[a, a]
-on the diagonal and m[a, b] + m[b, a] off it.
+on the diagonal and m[a, b] + m[b, a] off it.  ``pair_cell`` and its twin
+also take a range of home cells (``cells=(begin, count)``, the whole grid by
+default): only those cells' rows are computed, against the whole grid's
+slots, and the outputs hold those cells (forces (count, 3, C)) and their
+panels; a cell's rows come out the same to the bit in whichever range they
+are computed, so the ranges of a sharded evaluation
+(``kernel_direct.make_kernel_direct_space(shard=...)``) add up to the
+whole-grid call.
 
 The kernels' design (``csrc/pair_common.cuh``): on an H100 they are bound
 by the FP32 instruction rate and the latency of shared-memory round trips,
@@ -178,16 +185,30 @@ def _min_image(dx, dy, dz, box):
     return dx, dy, dz
 
 
+def cell_range(cfg, cells):
+    """(begin, end) of the home cells ``cells`` = (begin, count), or of
+    the whole grid for None."""
+    if cells is None:
+        return 0, cfg.n_cells
+    begin, count = (int(c) for c in cells)
+    if begin < 0 or count < 1 or begin + count > cfg.n_cells:
+        raise ValueError(f"cells {cells}: a range of at least one of the "
+                         f"{cfg.n_cells} cells")
+    return begin, begin + count
+
+
 def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-                lam_v_nn, box, cfg, energies, n_real, cell_kernel):
-    """Both kernels' plain twin, in the slot tensors' dtype.  The column
-    kernel's does not read ``n_real``: its pads lie beyond the cutoff of
-    every slot, so they get zero force as rows and give none as
-    candidates."""
+                lam_v_nn, box, cfg, energies, n_real, cell_kernel,
+                cells=None):
+    """Both kernels' plain twin, in the slot tensors' dtype, over the home
+    cells ``cells`` (the whole grid by default).  The column kernel's does
+    not read ``n_real``: its pads lie beyond the cutoff of every slot, so
+    they get zero force as rows and give none as candidates."""
     ncx, ncy, ncz = cfg.counts
     C = cfg.capacity
     nsub = cfg.nsub
     g = cfg.n_cells
+    lo, hi = cell_range(cfg, cells)
     dtype = slot_pos.dtype
     dev = slot_pos.device
     sqrt_ke = math.sqrt(ONE_4PI_EPS0)
@@ -195,25 +216,28 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
     grid_par = slot_par.reshape(ncx, ncy, ncz, 3, C)
     grid_sub = slot_sub.long().reshape(ncx, ncy, ncz, C)
     grid_ids = slot_ids.reshape(ncx, ncy, ncz, C)
-    xi = slot_pos[:, :, :, None]                        # (g, 3, C, 1)
-    qi = (slot_par[:, 0] * sqrt_ke)[:, :, None]
-    sgi = slot_par[:, 1][:, :, None]
-    epi = slot_par[:, 2][:, :, None]
-    si = slot_sub.long()[:, :, None]
-    excl = slot_excl[:, :, :, None]                     # (g, emax, C, 1)
-    oh_i = torch.nn.functional.one_hot(slot_sub.long(), nsub).to(dtype)
+    # the rows: the range's cells
+    row_pos, row_par = slot_pos[lo:hi], slot_par[lo:hi]
+    row_sub, row_ids = slot_sub[lo:hi].long(), slot_ids[lo:hi]
+    xi = row_pos[:, :, :, None]                         # (g, 3, C, 1)
+    qi = (row_par[:, 0] * sqrt_ke)[:, :, None]
+    sgi = row_par[:, 1][:, :, None]
+    epi = row_par[:, 2][:, :, None]
+    si = row_sub[:, :, None]
+    excl = slot_excl[lo:hi, :, :, None]                 # (g, emax, C, 1)
+    oh_i = torch.nn.functional.one_hot(row_sub, nsub).to(dtype)
     eye = torch.eye(C, dtype=torch.bool, device=dev)
     coords = [torch.arange(n, device=dev) for n in (ncx, ncy, ncz)]
     zero = torch.zeros((), dtype=dtype, device=dev)
-    forces = torch.zeros_like(slot_pos)
-    moments = (torch.zeros((g, 2, nsub, nsub), dtype=dtype, device=dev)
+    forces = torch.zeros_like(row_pos)
+    moments = (torch.zeros((hi - lo, 2, nsub, nsub), dtype=dtype, device=dev)
                if energies else None)
     # compared in the slot dtype: the kernel gets the same value rounded
     # once to float, so pairs at the cutoff fall on the same side
     cutoff2 = cfg.cutoff * cfg.cutoff
     fuse_corrections = cell_kernel and cfg.mode == MODE_EWALD
     if cfg.ljpme:
-        c6i = (8.0 * slot_par[:, 1] ** 3 * slot_par[:, 2])[:, :, None]
+        c6i = (8.0 * row_par[:, 1] ** 3 * row_par[:, 2])[:, :, None]
         inv_cut6, disp_cut = dispersion_cutoff_terms(cfg)
     for d in _neighbor_offsets():
         # cell c receives cell (c + d) mod nc, whose true image sits at
@@ -229,10 +253,10 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
                 view[axis] = -1
                 shift = shift + w.reshape(view) * box[axis].reshape(1, 1, 1, 3)
             cand = cand + shift[..., None]
-        cand = cand.reshape(g, 3, C)
-        cpar = torch.roll(grid_par, **roll).reshape(g, 3, C)
-        csub = torch.roll(grid_sub, **roll).reshape(g, C)
-        cids = torch.roll(grid_ids, **roll).reshape(g, C)
+        cand = cand.reshape(g, 3, C)[lo:hi]
+        cpar = torch.roll(grid_par, **roll).reshape(g, 3, C)[lo:hi]
+        csub = torch.roll(grid_sub, **roll).reshape(g, C)[lo:hi]
+        cids = torch.roll(grid_ids, **roll).reshape(g, C)[lo:hi]
 
         delta0 = xi - cand[:, :, None, :]               # (g, 3, C, C)
         dx, dy, dz = delta0[:, 0], delta0[:, 1], delta0[:, 2]
@@ -245,7 +269,7 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
             mask = mask & ~eye
         excluded = torch.any(excl == cids[:, None, None, :], dim=1)
         if cell_kernel:
-            real = (slot_ids[:, :, None] < n_real) & (cids[:, None, :] < n_real)
+            real = (row_ids[:, :, None] < n_real) & (cids[:, None, :] < n_real)
             xmask = real & excluded
             mask = mask & real
         mask = mask & ~excluded
@@ -344,10 +368,12 @@ def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
 
 
 def pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                    lam_c_nn, lam_v_nn, box, cfg, energies, n_real):
+                    lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                    cells=None):
     """Plain torch twin of ``csrc/pair_cell.cu``."""
     return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, True)
+                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, True,
+                       cells)
 
 
 def _check(name, t, shape, dtype, device):
@@ -395,9 +421,11 @@ def pair_launch_shape(cfg, cell_kernel, energies):
 
 
 def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-            lam_c_nn, lam_v_nn, box, cfg, energies, n_real, cell_kernel):
-    """Check the slot tensors, allocate the outputs, launch ``entry`` and
-    count the launch under its variant's name."""
+            lam_c_nn, lam_v_nn, box, cfg, energies, n_real, cell_kernel,
+            cells=None):
+    """Check the slot tensors, allocate the outputs, launch ``entry`` (the
+    cell kernel over the home cells ``cells``) and count the launch under
+    its variant's name."""
     dev = slot_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
@@ -412,10 +440,12 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
     _check("lam_c_nn", lam_c_nn, (nsub, nsub), f32, dev)
     _check("lam_v_nn", lam_v_nn, (nsub, nsub), f32, dev)
     _check("box", box, (3, 3), f32, dev)
-    forces = torch.empty((g, 3, C), dtype=f32, device=dev)
+    lo, hi = cell_range(cfg, cells)
+    forces = torch.empty((hi - lo, 3, C), dtype=f32, device=dev)
     moments = None
     if energies:
-        blocks = pair_launch_shape(cfg, cell_kernel, True)["blocks"]
+        blocks = (hi - lo) * pair_launch_shape(cfg, cell_kernel,
+                                               True)["row_blocks"]
         moments = torch.empty((blocks, 2, nsub, nsub), dtype=f32, device=dev)
     ncx, ncy, ncz = cfg.counts
     LIBRARY.call(
@@ -424,7 +454,8 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
         lam_c_nn.data_ptr(), lam_v_nn.data_ptr(), box.data_ptr(),
         forces.data_ptr(), None if moments is None else moments.data_ptr(),
         ncx, ncy, ncz, C, nsub, cfg.emax, cfg.mode, int(cfg.use_switch),
-        int(n_real), *([int(cfg.exceptions_periodic)] if cell_kernel else []),
+        int(n_real),
+        *([int(cfg.exceptions_periodic), lo, hi - lo] if cell_kernel else []),
         int(cfg.ljpme), cfg.cutoff, cfg.cutoff * cfg.cutoff,
         cfg.switch_distance, cfg.krf, cfg.crf, cfg.ewald_alpha,
         cfg.dispersion_alpha, *dispersion_cutoff_terms(cfg),
@@ -452,17 +483,18 @@ def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
 
 
 def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-              lam_v_nn, box, cfg, energies, n_real):
+              lam_v_nn, box, cfg, energies, n_real, cells=None):
     """Minimum-image pair forces with the Ewald exclusion corrections fused
-    in: (n_cells, 3, C) and moment panels (n_panels, 2, nsub, nsub) or
-    None.  ``slot_pos`` holds raw positions; slots whose atom index is
-    ``n_real`` or more are pads.  CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
+    in: (count, 3, C) and moment panels (n_panels, 2, nsub, nsub) or None
+    for the home cells ``cells`` = (begin, count) (default: the whole grid,
+    count = n_cells).  ``slot_pos`` holds raw positions; slots whose atom
+    index is ``n_real`` or more are pads.  CPU tensors take the plain twin;
+    CUDA tensors launch the kernel."""
     if slot_pos.device.type == "cpu":
         return pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                slot_excl, lam_c_nn, lam_v_nn, box, cfg,
-                               energies, n_real)
+                               energies, n_real, cells)
     return _launch("nbs_pair_cell", slot_pos, slot_par, slot_sub, slot_ids,
                    slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
-                   True)
+                   True, cells)
 

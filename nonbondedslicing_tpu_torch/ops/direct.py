@@ -156,7 +156,11 @@ def make_direct_space(*, mode, periodic, cutoff=None, krf=0.0, crf=0.0,
     Row blocks of ``block_size`` atoms (1024 or the largest power of two
     <= N) against all N columns; excluded pairs (``exclusion_list``, -1
     padded) are masked, and with a cutoff the pairs beyond it.  Slice
-    energies sum over the blocks in float64.
+    energies sum over the blocks in float64.  ``rows=(begin, end)`` takes
+    the rows [begin, end) only, in blocks from ``begin`` (a rank's share of
+    the sharded evaluation, ``parallel/mesh.py``): their pairs' slice
+    energies (each pair still weighted 1/2 from either side) and their
+    forces (end - begin, 3).
     """
     pair_terms = make_pair_terms(
         mode=mode, cutoff=cutoff, krf=krf, crf=crf, use_switch=use_switch,
@@ -164,10 +168,12 @@ def make_direct_space(*, mode, periodic, cutoff=None, krf=0.0, crf=0.0,
         dispersion_alpha=dispersion_alpha)
 
     def direct_space(positions, box, charge, sig_half, eps2, subsets,
-                     exclusion_list, slice_table, lam_coul, lam_vdw):
+                     exclusion_list, slice_table, lam_coul, lam_vdw,
+                     rows=None):
         n = positions.shape[0]
         dtype, dev = positions.dtype, positions.device
         block = block_size or _pick_block(n)
+        begin, end = (0, n) if rows is None else rows
         sl_tab, spairs = slice_tables(slice_table, dev)
         nsub = sl_tab.shape[0]
         lam_c_nn = lam_coul[sl_tab]
@@ -179,10 +185,10 @@ def make_direct_space(*, mode, periodic, cutoff=None, krf=0.0, crf=0.0,
         idx_all = torch.arange(n, device=dev)
         slice_energies = torch.zeros((num_slices, 2), dtype=torch.float64,
                                      device=dev)
-        forces = torch.empty((n, 3), dtype=dtype, device=dev)
-        for i0 in range(0, n, block):
-            i1 = min(i0 + block, n)
-            rows = idx_all[i0:i1]
+        forces = torch.empty((end - begin, 3), dtype=dtype, device=dev)
+        for i0 in range(begin, end, block):
+            i1 = min(i0 + block, end)
+            rows_i = idx_all[i0:i1]
             dr = positions[i0:i1, None, :] - positions[None, :, :]
             if periodic:
                 dr = min_image(dr, box)
@@ -190,7 +196,7 @@ def make_direct_space(*, mode, periodic, cutoff=None, krf=0.0, crf=0.0,
             excluded = torch.zeros((i1 - i0, n + 1), dtype=torch.bool,
                                    device=dev)
             excluded.scatter_(1, excl[i0:i1], True)
-            mask = (rows[:, None] != idx_all[None, :]) & ~excluded[:, :n]
+            mask = (rows_i[:, None] != idx_all[None, :]) & ~excluded[:, :n]
             if mode != PLAIN:
                 mask &= r2 < cutoff * cutoff
             r2s = torch.where(mask, r2, torch.ones((), dtype=dtype,
@@ -203,7 +209,8 @@ def make_direct_space(*, mode, periodic, cutoff=None, krf=0.0, crf=0.0,
             sub_i, sub_j = sub[i0:i1, None], sub[None, :]
             factor = torch.where(mask, lam_v_nn[sub_i, sub_j] * dedr_v
                                  + lam_c_nn[sub_i, sub_j] * dedr_c, 0.0)
-            forces[i0:i1] = torch.einsum("ij,ijk->ik", factor, dr)
+            forces[i0 - begin:i1 - begin] = torch.einsum("ij,ijk->ik",
+                                                         factor, dr)
             ec = subset_moments(torch.where(mask, e_coul, 0.0), oh[i0:i1],
                                 oh, spairs)
             ev = subset_moments(torch.where(mask, e_vdw, 0.0), oh[i0:i1],

@@ -63,7 +63,7 @@ NEIGHBOR_ROUTES = ("auto", "all_pairs", "cell", "pallas")
 
 def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
                  block_size=None, neighbor="auto", cell_capacity=None,
-                 hoist_eterm=False, with_aux=False):
+                 hoist_eterm=False, shard=None, with_aux=False):
     """f(positions, box, gvals, data) -> (slice_energies (S, 2) float64,
     forces (N, 3)[, aux]) in the dtype and on the device of ``positions``
     (``data`` from :func:`plan_data` on the same device and dtype).
@@ -96,6 +96,18 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
     ``block_size`` the all-pairs row block.  ``hoist_eterm`` builds the PME
     convolution kernels once from ``plan.box0`` (valid only while the box
     is that box).
+
+    ``shard`` (a ``torch.distributed`` process group; the JAX package's
+    ``(mesh, axis)``, ``engine.py:63``) evaluates over the group's ranks,
+    each on its own device with the same inputs: the cell-list and kernel
+    routes split the cells among the ranks (the JAX package shards only
+    its XLA cell list, ROADMAP D9), PME, LJPME's dispersion PME and Ewald
+    split the atoms (``parallel/pme_shard.py``), and their shares are
+    summed over the group; the all-pairs direct space, self and plasma
+    energies, exclusion corrections, 1-4s and the dispersion correction run
+    on every rank (``parallel/mesh.py`` splits the all-pairs rows).  Every
+    rank returns the same result, equal to the unsharded one to rounding
+    (ROADMAP D10).
 
     ``with_aux=True`` adds aux = {"overflow": int32 0-d tensor}, the atoms
     beyond the cell capacity (0 without a cell list), and on the kernel
@@ -148,7 +160,7 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
             krf=krf, crf=crf, use_switch=plan.use_switch,
             switch_distance=plan.switch_distance, ewald_alpha=plan.ewald_alpha,
             ljpme=ljpme, dispersion_alpha=plan.dispersion_alpha,
-            num_slices=nslices)
+            num_slices=nslices, shard=shard)
         if neighbor == "cell":
             route = "cell"
             direct_fn = neighbors.make_cell_direct_space(**cell_kw)
@@ -179,6 +191,25 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
 
     kvec_ints = (ewald.half_space_kvectors(plan.ewald_kmax)
                  if method == NonbondedForce.Ewald else None)
+    # the reciprocal part sharded by atom range (parallel/pme_shard.py)
+    recip_sharded = dpme_sharded = None
+    if shard is not None and include_reciprocal and is_ewald_family:
+        from ..parallel import pme_shard
+        tables = dict(num_subsets=nsub, slice_subset_pairs=slice_pairs,
+                      slice_table=plan.slice_table)
+        if method == NonbondedForce.Ewald:
+            recip_sharded = pme_shard.make_sharded_ewald(
+                shard, n, kvec_ints=kvec_ints, alpha=plan.ewald_alpha,
+                **tables)
+        else:
+            recip_sharded = pme_shard.make_sharded_pme(
+                shard, n, alpha=plan.ewald_alpha, grid_shape=plan.pme_grid,
+                moduli=plan.pme_moduli, **tables)
+            if ljpme:
+                dpme_sharded = pme_shard.make_sharded_pme(
+                    shard, n, alpha=plan.dispersion_alpha,
+                    grid_shape=plan.dispersion_grid,
+                    moduli=plan.dpme_moduli, dispersion=True, **tables)
     hoisted = {}      # (device, dtype) -> (Coulomb eterm, dispersion eterm)
     consts_cache = {}
 
@@ -261,31 +292,44 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
             slice_energies[:, COUL] += w * q_sub[a] * q_sub[b] * factor
             # k-space
             if method == NonbondedForce.Ewald:
-                e_k, f_k = ewald.ewald_reciprocal(
-                    positions, box, charge, subsets, lam_c,
-                    kvec_ints=c["kvec"], alpha=alpha, num_subsets=nsub,
-                    slice_table=c["sl_tab"], slice_subset_pairs=c["spairs"])
+                if recip_sharded is not None:
+                    e_k, f_k = recip_sharded(positions, box, charge, subsets,
+                                             lam_c)
+                else:
+                    e_k, f_k = ewald.ewald_reciprocal(
+                        positions, box, charge, subsets, lam_c,
+                        kvec_ints=c["kvec"], alpha=alpha, num_subsets=nsub,
+                        slice_table=c["sl_tab"],
+                        slice_subset_pairs=c["spairs"])
                 slice_energies[:, COUL] += e_k
                 forces = forces + f_k
             else:
                 eterm0, dterm0 = eterms(dev, dtype)
-                e_k, f_k = pme.pme_reciprocal(
-                    positions, box, charge, subsets, lam_c, alpha=alpha,
-                    grid_shape=plan.pme_grid, moduli=c["pme_moduli"],
-                    num_subsets=nsub, slice_subset_pairs=c["spairs"],
-                    slice_table=c["sl_tab"], eterm=eterm0)
+                if recip_sharded is not None:
+                    e_k, f_k = recip_sharded(positions, box, charge, subsets,
+                                             lam_c, eterm=eterm0)
+                else:
+                    e_k, f_k = pme.pme_reciprocal(
+                        positions, box, charge, subsets, lam_c, alpha=alpha,
+                        grid_shape=plan.pme_grid, moduli=c["pme_moduli"],
+                        num_subsets=nsub, slice_subset_pairs=c["spairs"],
+                        slice_table=c["sl_tab"], eterm=eterm0)
                 slice_energies[:, COUL] += e_k
                 forces = forces + f_k
                 if ljpme:
                     c6 = 8.0 * sig_half ** 3 * eps2
-                    e_d, f_d = pme.pme_reciprocal(
-                        positions, box, c6, subsets, lam_v,
-                        alpha=plan.dispersion_alpha,
-                        grid_shape=plan.dispersion_grid,
-                        moduli=c["dpme_moduli"], num_subsets=nsub,
-                        slice_subset_pairs=c["spairs"],
-                        slice_table=c["sl_tab"], dispersion=True,
-                        eterm=dterm0)
+                    if dpme_sharded is not None:
+                        e_d, f_d = dpme_sharded(positions, box, c6, subsets,
+                                                lam_v, eterm=dterm0)
+                    else:
+                        e_d, f_d = pme.pme_reciprocal(
+                            positions, box, c6, subsets, lam_v,
+                            alpha=plan.dispersion_alpha,
+                            grid_shape=plan.dispersion_grid,
+                            moduli=c["dpme_moduli"], num_subsets=nsub,
+                            slice_subset_pairs=c["spairs"],
+                            slice_table=c["sl_tab"], dispersion=True,
+                            eterm=dterm0)
                     slice_energies[:, VDW] += e_d
                     forces = forces + f_d
 

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from ..utils.constants import ONE_4PI_EPS0
 
 # phase-tensor elements (atoms x k-vectors) per chunk
@@ -39,13 +40,19 @@ def half_space_kvectors(kmax):
 
 def ewald_reciprocal(positions, box, charge, subsets, lam_coul_s, *,
                      kvec_ints, alpha, num_subsets, slice_table,
-                     slice_subset_pairs, energies=True):
+                     slice_subset_pairs, energies=True, group=None):
     """Returns (slice Coulomb energies (S,) float64, forces (N, 3)).
     ``kvec_ints`` is an int64 tensor of :func:`half_space_kvectors` on the
     device of ``positions``; ``slice_table`` and ``slice_subset_pairs``
     int64 tensors there too.  ``energies=False`` skips the structure-factor
     products of the energies and returns None for them (the fused engine's
-    force-only steps)."""
+    force-only steps).
+
+    With ``group`` (a ``torch.distributed`` process group) the particle
+    arrays hold one rank's atoms, as many on every rank (the JAX package's
+    ``psum_axis``, ``ewald.py:64-66``): each chunk's per-subset structure
+    factors are summed over the group before they are used, so the slice
+    energies are every rank's and the forces those of the rank's atoms."""
     dtype, dev = positions.dtype, positions.device
     n = positions.shape[0]
     recip_size = 2.0 * math.pi / torch.diagonal(box)
@@ -68,6 +75,9 @@ def ewald_reciprocal(positions, box, charge, subsets, lam_coul_s, *,
         t_im = charge[:, None] * torch.sin(phase)
         s_re = onehot.T @ t_re                                 # (nsub, Kc)
         s_im = onehot.T @ t_im
+        if group is not None:
+            collectives.all_reduce(s_re, group)
+            collectives.all_reduce(s_im, group)
         if energies:
             s_re64, s_im64 = s_re.to(torch.float64), s_im.to(torch.float64)
             a64 = a.to(torch.float64)

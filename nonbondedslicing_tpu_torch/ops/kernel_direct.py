@@ -9,6 +9,7 @@ energies, in reaction-field or Ewald mode.
 
 import torch
 
+from ..parallel import collectives
 from . import bonded, cuda_direct, neighbors
 from .direct import EWALD_DIRECT, slice_tables
 
@@ -37,7 +38,8 @@ def make_kernel_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
                              crf=0.0, use_switch=False, switch_distance=0.0,
                              ewald_alpha=0.0, ljpme=False,
                              dispersion_alpha=0.0, num_slices=1,
-                             exceptions_periodic=False, exclusion_pairs=None):
+                             exceptions_periodic=False, exclusion_pairs=None,
+                             shard=None):
     """The direct space of ``pallas_direct.py:649-776`` on ``pair_cell``.
     Same signature as ``neighbors.make_cell_direct_space``:
 
@@ -64,13 +66,25 @@ def make_kernel_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
     Float64 tensors take the reference's own route
     (``pallas_direct.py:673-694``): the plain cell-list engine plus
     ``bonded.exclusion_corrections`` of ``exclusion_pairs`` (E, 2).
+
+    ``shard`` (a ``torch.distributed`` process group) splits the cells
+    among its ranks (``collectives.share``): in float32 every rank builds
+    the whole slot table, launches ``pair_cell`` over its own range of
+    cells (whose rows' exclusion corrections it fuses in, as the whole
+    grid's call does), sums its moment panels in float64 and the panels'
+    sums over the group, and writes its slots' forces back into zeros and
+    sums them over the group: the forces equal the unsharded call's to the
+    bit, the energies to rounding.  Float64 takes the sharded cell list and
+    adds the exclusion corrections once, after its sums.  Every rank
+    returns the same full result.
     """
     ewald = mode == EWALD_DIRECT
     base = neighbors.make_cell_direct_space(
         mode=mode, cutoff=cutoff, counts=counts, capacity=capacity, krf=krf,
         crf=crf, use_switch=use_switch, switch_distance=switch_distance,
         ewald_alpha=ewald_alpha, ljpme=ljpme,
-        dispersion_alpha=dispersion_alpha, num_slices=num_slices)
+        dispersion_alpha=dispersion_alpha, num_slices=num_slices,
+        shard=shard)
     if exclusion_pairs is None:
         exclusion_pairs = torch.zeros((0, 2), dtype=torch.int64)
     pairs_cache = {}
@@ -110,16 +124,26 @@ def make_kernel_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
         slots, tensors, overflow = cell_slots(
             positions, charge, sig_half, eps2, subsets, exclusion_list, box,
             counts, capacity)
-        forces_s, moments = cuda_direct.pair_cell(
-            *tensors, lam_coul[sl_tab].contiguous(),
-            lam_vdw[sl_tab].contiguous(), box.contiguous(), cfg, True, n)
-        m = torch.sum(moments.to(torch.float64), dim=0)   # (2, nsub, nsub)
+        lo, hi = (0, cfg.n_cells) if shard is None else collectives.share(
+            cfg.n_cells, shard)
+        m = torch.zeros((2, cfg.nsub, cfg.nsub), dtype=torch.float64,
+                        device=dev)
+        forces = torch.zeros((n + 1, 3), dtype=positions.dtype, device=dev)
+        if hi > lo:
+            forces_s, moments = cuda_direct.pair_cell(
+                *tensors, lam_coul[sl_tab].contiguous(),
+                lam_vdw[sl_tab].contiguous(), box.contiguous(), cfg, True, n,
+                cells=(lo, hi - lo))
+            m = torch.sum(moments.to(torch.float64), dim=0)
+            forces[slots[lo * capacity:hi * capacity]] = (
+                forces_s.transpose(1, 2).reshape(-1, 3))
+        if shard is not None:
+            collectives.all_reduce(m, shard)
+            collectives.all_reduce(forces, shard)
         a, b = spairs[:, 0], spairs[:, 1]
         # every pair is met from both sides with weight 1/2
         slice_energies = torch.where(a == b, m[:, a, a],
                                      m[:, a, b] + m[:, b, a]).T
-        forces = torch.zeros((n + 1, 3), dtype=positions.dtype, device=dev)
-        forces[slots] = forces_s.transpose(1, 2).reshape(-1, 3)
         return (slice_energies.contiguous(), forces[:n],
                 overflow.to(torch.int32))
 

@@ -12,7 +12,8 @@ ReferenceNonbondedSlicingKernels.cpp:197).
 package's ``neighbors.py:121-309``): for every cell its slots against the
 slots of its 27 neighbour cells, in chunks of cells, each unordered pair
 visited from both sides.  It is the generic engine's float64 route and its
-``neighbor="cell"`` route.
+``neighbor="cell"`` route; with ``shard`` each rank takes a range of the
+cells (``neighbors.py:155-158``, ``:279-302``).
 """
 
 import math
@@ -20,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from .direct import PLAIN, make_pair_terms, slice_tables, subset_moments
 from .geometry import min_image, recip_box_vectors
 
@@ -140,7 +142,7 @@ def _neighbor_offsets():
 def make_cell_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
                            crf=0.0, use_switch=False, switch_distance=0.0,
                            ewald_alpha=0.0, ljpme=False, dispersion_alpha=0.0,
-                           num_slices=1, cells_per_chunk=None):
+                           num_slices=1, cells_per_chunk=None, shard=None):
     """Cell-list variant of ``direct.make_direct_space`` (periodic methods):
 
     f(positions, box, charge, sig_half, eps2, subsets, exclusion_list,
@@ -152,6 +154,14 @@ def make_cell_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
     against the slots of their 27 neighbour cells (minimum image per pair).
     ``overflow`` counts the atoms beyond the static capacity: callers must
     check it.  The function carries ``returns_overflow = True``.
+
+    ``shard`` (a ``torch.distributed`` process group) splits the cells
+    among its ranks (``collectives.share``): every rank builds the whole
+    slot table, computes the rows of its own cells only, sums its slice
+    energies over the group in float64 and its forces, written back as a
+    permutation into zeros, over the group too; every rank returns the
+    same full result, equal to the unsharded one to rounding (the order of
+    the sums).
     """
     assert mode != PLAIN
     pair_terms = make_pair_terms(
@@ -196,10 +206,12 @@ def make_cell_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
         oh = torch.nn.functional.one_hot(sub_s, nsub).to(dtype)
         slice_energies = torch.zeros((num_slices, 2), dtype=torch.float64,
                                      device=dev)
+        lo, hi = ((0, n_cells) if shard is None
+                  else collectives.share(n_cells, shard))
         f_slots = torch.empty((n_cells * capacity, 3), dtype=dtype,
                               device=dev)
-        for c0 in range(0, n_cells, cells_per_chunk):
-            c1 = min(c0 + cells_per_chunk, n_cells)
+        for c0 in range(lo, hi, cells_per_chunk):
+            c1 = min(c0 + cells_per_chunk, hi)
             rows = torch.arange(c0 * capacity, c1 * capacity,
                                 device=dev).reshape(c1 - c0, capacity)
             cols = cand_slots[c0:c1]                   # (g, 27C)
@@ -234,7 +246,11 @@ def make_cell_direct_space(*, mode, cutoff, counts, capacity, krf=0.0,
         # slot forces back on atoms: every real atom has one slot, so the
         # write is a permutation (pads all land on the dropped row n)
         forces = torch.zeros((n + 1, 3), dtype=dtype, device=dev)
-        forces[slots] = f_slots
+        mine = slice(lo * capacity, hi * capacity)
+        forces[slots[mine]] = f_slots[mine]
+        if shard is not None:
+            collectives.all_reduce(slice_energies, shard)
+            collectives.all_reduce(forces, shard)
         return slice_energies, forces[:n], overflow.to(torch.int32)
 
     direct_space.returns_overflow = True

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from ..utils.constants import ONE_4PI_EPS0
 from .geometry import recip_box_vectors
 
@@ -315,7 +316,8 @@ def interpolate_forces(phi, charges, subsets, index, theta, dtheta, recip,
 
 def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
                    grid_shape, moduli, num_subsets, slice_subset_pairs,
-                   slice_table, dispersion=False, order=5, eterm=None):
+                   slice_table, dispersion=False, order=5, eterm=None,
+                   group=None):
     """Sliced PME of one term (Coulomb charges, or LJPME's C6 with
     ``dispersion``) on atoms: (slice energies (S,) float64, forces (N, 3)).
     ``eterm`` optionally supplies the z-half convolution kernel, valid
@@ -327,12 +329,20 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
     (float atomics on CUDA).  In float32 the energies come from a second,
     float64 spread of the same atoms (splines from a float64 reciprocal
     box, a float64 grid and transform), as the fused engine's do (ROADMAP
-    D1): a float32 grid's rounding reaches a weak slice's dE/dlambda."""
+    D1): a float32 grid's rounding reaches a weak slice's dE/dlambda.
+
+    With ``group`` (a ``torch.distributed`` process group) the particle
+    arrays hold one rank's atoms (``parallel/pme_shard.py``): its grids
+    (the float64 one too) are summed over the group after the spread, so
+    the slice energies are every rank's and the forces those of the rank's
+    atoms."""
     recip = recip_box_vectors(box)
     index, frac = grid_index_and_fraction(positions, recip, grid_shape)
     theta, dtheta = bsplines(frac, order)
     grid = spread_charges(charges, subsets, index, theta, grid_shape,
                           num_subsets, order)
+    if group is not None:
+        collectives.all_reduce(grid, group)
     nx, ny, nz = grid_shape
     if eterm is None:
         make = dispersion_eterm if dispersion else coulomb_eterm
@@ -347,6 +357,8 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
         grid64 = spread_charges(charges.to(f64), subsets, index64,
                                 bsplines(frac64, order)[0], grid_shape,
                                 num_subsets, order)
+        if group is not None:
+            collectives.all_reduce(grid64, group)
         spectra64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
     slice_energies = pme_slice_energies_ri(
         spectra64.real, spectra64.imag,

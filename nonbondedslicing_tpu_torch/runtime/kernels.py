@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # entry point -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
     "nbs_pair_column": [_P] * 10 + [_I] * 10 + [_F] * 10 + [_I, _P],
-    "nbs_pair_cell": [_P] * 10 + [_I] * 11 + [_F] * 10 + [_I, _P],
+    "nbs_pair_cell": [_P] * 10 + [_I] * 13 + [_F] * 10 + [_I, _P],
     "nbs_pair_launch_shape": [_I] * 5 + [_P],
     "nbs_pme_spread": [_P] * 5 + [_I] * 12 + [_P],
     "nbs_pme_interp": [_P] * 6 + [_I] * 5 + [_P],

@@ -1,0 +1,99 @@
+"""The sharded evaluation's kernel on the card: ``pair_cell`` over cell
+ranges, and ``make_sharded_compute`` in two ranks on one card over gloo.
+
+Marked ``gpu``; they skip (from inside the fixture) where no CUDA device is
+present.  On a machine with an H100:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_parallel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nonbondedslicing_tpu_torch as nbt
+from nonbondedslicing_tpu_torch.ops import cuda_direct
+from nonbondedslicing_tpu_torch.ops import engine as tengine
+from nonbondedslicing_tpu_torch.ops import plan as tplan
+from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+
+from torch_pair_cases import PAIR_CASES, pair_case_arrays, pair_case_slots
+import torch_parallel_cases
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100 machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_pair_cell_ranges_equal_whole_grid(cuda, case, parts):
+    """pair_cell launched over ``parts`` ranges of cells (as a sharded
+    evaluation of that many ranks launches it): the outputs concatenated
+    equal the whole-grid launch to the bit, forces and moment panels, and
+    each launch is counted."""
+    arrays = pair_case_arrays(case)
+    args = pair_case_slots(arrays, True, cuda, torch.float32)["args"]
+    cfg, n = arrays["cfg"], arrays["charge"].shape[0]
+    key = "pair_cell" + ("_ljpme" if cfg.ljpme else "") + "_energies"
+    f_all, m_all = cuda_direct.pair_cell(*args, True, n)
+    per = -(-cfg.n_cells // parts)
+    before = cuda_direct.LAUNCHES[key]
+    outs = [cuda_direct.pair_cell(*args, True, n,
+                                  cells=(lo, min(per, cfg.n_cells - lo)))
+            for lo in range(0, cfg.n_cells, per)]
+    torch.cuda.synchronize()
+    assert cuda_direct.LAUNCHES[key] == before + len(outs)
+    assert torch.equal(torch.cat([o[0] for o in outs]), f_all)
+    assert torch.equal(torch.cat([o[1] for o in outs]), m_all)
+    f_plain, _ = cuda_direct.pair_cell_plain(*args, True, n,
+                                             cells=(0, per))
+    assert float((outs[0][0] - f_plain).abs().max()) <= 2e-5 * (
+        float(f_plain.abs().max()) + 1.0)
+
+
+def test_sharded_compute_two_ranks_on_one_card(cuda, tmp_path):
+    """make_sharded_compute in two ranks on this card over gloo (CUDA
+    tensors) at a 2.8 nm cut of the benchmark's water (3 cells of the
+    cutoff per axis, the kernel route, pair_cell over half the cells a
+    rank) against make_compute on the card: every rank the same result,
+    direct-space forces equal to the bit, forces within 1e-5 of max|F|,
+    energy and dE/dlambda within 1e-6 relative (phase 14 (a)'s gates of
+    chip_smoke.py)."""
+    from port_systems import STATE_FILE, build_system, water_cube, \
+        water_system
+    blob = np.load(STATE_FILE)
+    pos, _, edge = water_cube(blob["positions"], blob["velocities"],
+                              build_system(nbt)[2], 2.8)
+    system, force, _ = water_system(nbt, len(pos) // 3, edge)
+    plan = tplan.build_plan(force, system)
+    ranks = torch_parallel_cases.run_ranks(
+        2, str(tmp_path), [("cube", "torch_parallel_cases:sharded_plan",
+                            dict(plan=plan, positions=pos))],
+        backend="gloo", devices=[str(cuda)] * 2)
+    route, e, f, f_dir = ranks[0]["cube"]
+    assert route == "pallas"
+    for a, b in zip(ranks[0]["cube"][1:], ranks[1]["cube"][1:]):
+        assert np.array_equal(a, b)
+    args = [torch.as_tensor(np.asarray(x), device=cuda).float()
+            for x in (pos, plan.box0, plan.global_defaults)]
+    args.append(tengine.plan_data(plan, device=cuda, dtype=torch.float32))
+    e1, f1 = (x.cpu() for x in tengine.make_compute(plan, True, True)(*args))
+    f_dir1 = tengine.make_compute(plan, True, False)(*args)[1].cpu()
+    assert torch.equal(torch.as_tensor(f_dir), f_dir1)
+    assert float((torch.as_tensor(f) - f1).abs().max()) <= 1e-5 * float(
+        f1.abs().max())
+    lam = slice_lambdas(plan.lam_source,
+                        torch.as_tensor(plan.global_defaults,
+                                        dtype=torch.float64))
+    e = torch.as_tensor(e)
+    E, E1 = (float(tengine.contract_energy(x, lam)) for x in (e, e1))
+    assert abs(E - E1) <= 1e-6 * abs(E1)
+    d, d1 = (tengine.parameter_derivatives(x, plan.deriv_mask)
+             for x in (e, e1))
+    assert float(((d - d1).abs() / d1.abs().clamp(min=1.0)).max()) <= 1e-6

@@ -63,3 +63,27 @@ def test_kernel_build_is_lazy():
     assert {"nbs_" + n[:-3] for n in names} == (
         set(kernels._SIGNATURES) - {"nbs_pair_launch_shape"})
     assert len(kernels.source_hash()) == 16
+
+
+def test_parallel_imports_without_jax():
+    """The sharded evaluation (``parallel/``) and the tests' rank helper,
+    which spawned ranks import, load no JAX and nothing of the JAX
+    package."""
+    probe = """
+import sys
+from nonbondedslicing_tpu_torch.parallel import collectives, mesh, pme_shard
+import torch_parallel_cases
+names = ("make_sharded_compute", "make_multichip_md_step")
+assert all(callable(getattr(mesh, name)) for name in names)
+names = ("make_pme_device_term", "make_sharded_pme", "make_sharded_ewald")
+assert all(callable(getattr(pme_shard, name)) for name in names)
+print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m.startswith("nonbondedslicing_tpu.")))
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.path.join(root, "tests")]))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -173,9 +173,44 @@ the last line:
    velocities, against a loop of make_compute with the same leapfrog on
    this card: positions within 1e-9 nm (the two differ only in the order
    of float64 sums); (b) one rank per card over NCCL (one rank on a
-   one-card machine) with (a)'s gates.  ``python3 chip_smoke.py
-   --sharded`` runs phases 1, 2 and 14 only (the call to make on several
-   cards).
+   one-card machine) with (a)'s gates;
+15. the slab-decomposed MD step, ``parallel/fused_shard.make_sharded_md_step``
+   (each rank its x-slab of cells, K4: its pair kernel over that range of
+   home cells; the PME, the exclusion rows and the 1-4s by atom, molecule
+   and exception range; one force all_reduce a step), in spawned ranks as
+   phase 14's, on the rigid box under PME and LJPME (pair_column, SETTLE)
+   and the solute box under PME (pair_cell) with phase 13's clusters (the
+   step takes no bonds, as the JAX package's does not, so the chain is
+   held by its 1-2 pairs as constraints, one 11-wide cluster solved by
+   CGLS, its 1-3 bonds left out), at phases 5 and 6's capacity (the most
+   atoms in a cell + 8, not choose_cell_grid's 220: the pair kernels' time
+   grows with it), the cells of cutoff + 0.1 nm and K from the skin at 8
+   nm/ps.  First K4 alone: pair_column (force-only and energies; LJPME
+   force-only) over the first of two ranks' slabs against its plain twin,
+   the two slabs concatenated against the whole grid to the bit, and its
+   time beside the whole grid's in turns, with the range's bound.  (a) Two
+   ranks on this card over gloo (eager windows): every rank ends with the
+   same positions, velocities and energy to the bit; one warm-up chunk and
+   three timed chunks of 200 steps with phase 5's gates (and the chain's
+   distances); the energy at the state reached against CPU float64 (phase
+   4's energy gate: the run returns the energy alone); 10 steps from the
+   starting state against the single
+   card's make_md_step at the same cells, K and capacity (positions within
+   slab_md_tolerance, derived beside SLAB_ROUNDING_NM: the two steps'
+   PME grids differ, the plan's 55 points against the 60 aligned to the
+   bricks, and under LJPME the dispersion grids, 28 against 30, so the
+   largest difference of their reciprocal forces is measured in the run);
+   each rank's pair kernel launched once a
+   step and its energies variant once a run() (counted, the counts set to
+   0 just before the run), a rank with no cells none; ms/step of each rank
+   beside the single card's make_md_step at the same K and capacity.  (b)
+   One rank per card over NCCL (four on a four-card machine, where the
+   last rank of the (6, 6, 6) grid owns no cell) with (a)'s gates; its
+   windows replay CUDA graphs with the force all_reduce captured: two
+   windows of the graph against two of the eager body within
+   TOL_SLAB_GRAPH, and no capture after the warm-up chunk.
+   ``python3 chip_smoke.py --sharded`` runs phases 1, 2, 14 and 15 only
+   (the call to make on several cards).
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -207,13 +242,14 @@ must equal it to the bit.
 Both systems come from port_systems.py.  The line before the last is a
 JSON object of the kernels, one entry per kernel and path ("rigid",
 "solute", "rigid_ljpme", "solute_ljpme", "generic", "context",
-"context_solute", "ewald", "getstate" or "constrained"): launches in that
-path's run
+"context_solute", "ewald", "getstate", "constrained", "sharded" or
+"slab"): launches in that path's run
 (the MD runs of phases 5, 6, 7 and 8; the solute box's evaluations of
 phases 7 and 8; phase 11's six float32 evaluations; phase 12's step()
 calls of both Contexts, the bare-Ewald MD and the float32 getState
 calls; phase 13's MD of the constrained solute, whose kernels' shapes
-are phase 6's and whose errors and times are phase 6's; the per-step
+are phase 6's and whose errors and times are phase 6's; phase 14's
+ranks' evaluations; phase 15 (a)'s ranks' MD runs; the per-step
 rebuild launches no hand-written kernel and has no entry), max abs error
 against the plain
 twin, CUDA-event ms of kernel and twin, and the bound: the larger of the
@@ -291,6 +327,30 @@ SHARD_MD_DT = 0.001       # ps
 TOL_SHARD_FORCE = 1e-5    # of max|F|, sharded against the single card, f32
 TOL_SHARD_ENERGY = 1e-6   # relative energy and dE/dlambda, the same
 TOL_SHARD_MD = 1e-9       # nm, phase 14 (c) in float64
+SLAB_TIMED_CHUNKS = 3     # phase 15: timed chunks after a warm-up chunk
+SLAB_CHECK_STEPS = 10     # phase 15: steps against the single card's
+# phase 15: the positions of the slab step after SLAB_CHECK_STEPS (n = 10)
+# steps of 2 fs against the single card's make_md_step are held to
+# slab_md_tolerance (below), from two terms.  (1) Forces: the slab step
+# spreads on the plan's PME grid (55 points at the benchmark box), the
+# fused step on the grid aligned to its bricks (60), and under LJPME the
+# dispersion grids differ too (28 against 30): the largest difference of
+# the two reciprocal forces at the starting state, measured in float64 on
+# the card in the run, plus float32 rounding within 1e-5 of max|F| ~ 3e3
+# kJ/mol/nm (phase 14's gate); a force difference dF moves an atom of the
+# lightest mass m by at most sum_k k dt^2 dF / m = 55 dt^2 dF / m.  (2)
+# The float32 constraint solve rounds: inputs an ulp apart come out of it
+# up to 8 ulps apart (1.9e-6 nm at 2.7 nm, a CPU float32 run of both steps
+# from one state), 3.8e-6 nm at the box's 6.15 nm, and a position's error
+# at step j is carried on by the velocity (x_j - x_{j-1}) / dt into every
+# later step: sum_j (n - j + 1) = 55 of them, 2.1e-4 nm.
+SLAB_ROUNDING_NM = 55 * 3.8e-6
+SLAB_ROUNDING_FORCE = 1e-5 * 3e3       # kJ/mol/nm
+# nm, phase 15 (b): two windows (2K = 6 steps at K = 3) of the graph
+# against the eager body, whose atom-range PME adds with float atomics in
+# another order (one grid, so only the rounding terms): 21 * (4e-6 * 0.03
+# / 1.008 + 3.8e-6) = 8.3e-5
+TOL_SLAB_GRAPH = 8.3e-5
 CONTEXT_TIMED_CHUNKS = 3  # phase 12: step() chunks after a warm-up chunk
 CONTEXT_ALTERNATED_CHUNKS = 8   # phase 12 (a): timed chunks of the Context
                                 # and of make_md_step, in turns
@@ -410,6 +470,9 @@ ENTRIES = (
      "sharded_rf"),
     ("pair_cell_ljpme_energies_sharded", "pair_cell_ljpme_energies",
      "sharded", "sharded"),
+    ("pair_column_sharded", "pair_column", "slab", "slab"),
+    ("pair_column_energies_sharded", "pair_column_energies", "slab", "slab"),
+    ("pair_column_ljpme_sharded", "pair_column_ljpme", "slab", "slab"),
 )
 # the kernels each run must launch; it must launch no other ("generic":
 # phase 11's evaluations in Ewald mode, "generic_rf" in reaction-field mode;
@@ -417,7 +480,9 @@ ENTRIES = (
 # either box, "ewald" bare Ewald's MD, "getstate" the float32 getState
 # calls, K3; "simple" the per-step rebuild's steps, which launch none;
 # phase 14: "sharded" the ranks' make_sharded_compute calls in Ewald mode,
-# "sharded_rf" in reaction-field mode, pair_cell over each rank's cells)
+# "sharded_rf" in reaction-field mode, pair_cell over each rank's cells;
+# phase 15: "slab" the ranks' make_sharded_md_step runs over gloo, each
+# rank's pair kernel over its x-slab of cells, the PME on the atoms)
 RUN_KERNELS = {
     "generic": {"pair_cell_energies", "pair_cell_ljpme_energies"},
     "generic_rf": {"pair_cell_energies"},
@@ -440,6 +505,8 @@ RUN_KERNELS = {
     "simple": set(),
     "sharded": {"pair_cell_energies", "pair_cell_ljpme_energies"},
     "sharded_rf": {"pair_cell_energies"},
+    "slab": {"pair_column", "pair_column_energies", "pair_column_ljpme",
+             "pair_column_ljpme_energies", "pair_cell", "pair_cell_energies"},
 }
 RUN_KERNELS["context"] = RUN_KERNELS["rigid"]
 RUN_KERNELS["context_solute"] = RUN_KERNELS["solute"]
@@ -2713,6 +2780,402 @@ def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
     launched("sharded (b) nccl", ranks)
 
 
+def slab_md_tolerance(grid_df, m_min, dt=DT_PS):
+    """nm: how far SLAB_CHECK_STEPS steps of the slab step and of the
+    single card's make_md_step may end apart (see SLAB_ROUNDING_NM):
+    reciprocal forces ``grid_df`` apart from their two PME grids, float32
+    rounding, the lightest mass ``m_min``."""
+    n = SLAB_CHECK_STEPS
+    return (n * (n + 1) / 2 * dt * dt * (grid_df + SLAB_ROUNDING_FORCE)
+            / m_min + SLAB_ROUNDING_NM)
+
+
+def grid_force_difference(plan, fused_cfg, p_np, dev):
+    """The largest difference of the reciprocal forces (kJ/mol/nm) on the
+    plan's PME grid (and dispersion grid) and on the fused engine's grids
+    aligned to its bricks (``fused_cfg``), at ``p_np``, in float64 on the
+    card: the atom-space PME of ``ops/pme.py`` on both."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
+    from nonbondedslicing_tpu_torch.ops import params as params_mod
+    from nonbondedslicing_tpu_torch.utils.indexing import slice_subsets
+    pos, box, gvals, data = card_inputs(plan, p_np, torch.float64, dev)
+    charge, sig_half, eps2 = params_mod.particle_params(data, gvals)
+    lam = params_mod.slice_lambdas(plan.lam_source, gvals)
+    tables = dict(
+        num_subsets=plan.num_subsets,
+        slice_subset_pairs=torch.as_tensor(
+            np.asarray(slice_subsets(plan.num_subsets)), device=dev),
+        slice_table=torch.as_tensor(np.asarray(plan.slice_table),
+                                    dtype=torch.int64, device=dev))
+    terms = [(charge, lam[:, 0], plan.ewald_alpha, False,
+              (plan.pme_grid, plan.pme_moduli),
+              (fused_cfg["pme_grid"], fused_cfg["pme_moduli"]))]
+    if "dispersion_grid" in fused_cfg:
+        terms.append((8.0 * sig_half ** 3 * eps2, lam[:, 1],
+                      plan.dispersion_alpha, True,
+                      (plan.dispersion_grid, plan.dpme_moduli),
+                      (fused_cfg["dispersion_grid"],
+                       fused_cfg["dpme_moduli"])))
+    df = torch.zeros_like(pos)
+    for weight, lam_s, alpha, dispersion, *grids in terms:
+        f = [pme_mod.pme_reciprocal(
+            pos, box, weight, data["subsets"], lam_s, alpha=alpha,
+            grid_shape=tuple(grid),
+            moduli=tuple(torch.as_tensor(np.asarray(m), device=dev)
+                         for m in moduli),
+            dispersion=dispersion, energies=False, **tables)[1]
+            for grid, moduli in grids]
+        df += f[0] - f[1]
+    return float(df.abs().max())
+
+
+def slab_rank(group, device, configs, timed_chunks):
+    """Phase 15's work in one rank of ``group`` on ``device`` (called by
+    ``torch_parallel_cases.run_ranks``): for each configuration (label,
+    plan, positions, velocities, masses, constraints, capacity),
+    ``make_sharded_md_step`` in float32: SLAB_CHECK_STEPS steps from the
+    given state (against the single card's, in the parent), then the
+    counted run (the launch counts set to 0 just before it): a warm-up
+    chunk and ``timed_chunks`` timed chunks of CHUNK_STEPS steps through
+    :class:`Chunks` (bench.py's retries); where the windows replay CUDA
+    graphs, two windows of the graph against two of the eager body from
+    the state reached, and whether a capture followed the warm-up chunk.
+    Returns numpy arrays and numbers."""
+    import torch
+    from nonbondedslicing_tpu_torch.models.force import OpenMMException
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.parallel import collectives, fused_shard
+    dev = torch.device(device)
+    f32 = torch.float32
+    out = {}
+    for label, plan, p_np, v_np, masses, cons, capacity in configs:
+        def make_run(cap, reuse, plan=plan, masses=masses, cons=cons):
+            return fused_shard.make_sharded_md_step(
+                plan, masses, DT_PS, group, dtype=f32, constraints=cons,
+                reuse_steps=reuse, cell_capacity=cap)
+
+        pos, box, gvals, data = card_inputs(plan, p_np, f32, dev)
+        vel = torch.as_tensor(v_np, device=dev).to(f32)
+        run = make_run(capacity, None)
+        p10, v10, e10 = run(pos, vel, box, gvals, data, SLAB_CHECK_STEPS)
+        chunks = Chunks(make_run, capacity, OpenMMException)
+        for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        p, v = pos, vel
+        chunk_s = []
+        for i in range(1 + timed_chunks):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            p, v, energy = chunks(p, v, box, gvals, data, CHUNK_STEPS)
+            torch.cuda.synchronize()
+            chunk_s.append(time.time() - t0)
+            if i == 0:
+                warm = (chunks.run, chunks.run.stats["captures"])
+        launched = {k: n for k, n in all_launches().items() if n}
+        config = chunks.run.config
+        ncx, ncy, ncz = config["counts"]
+        found = dict(
+            config=config,
+            cells=collectives.share(ncx * ncy * ncz, group,
+                                    quantum=ncy * ncz),
+            check=(p10.cpu().numpy(), v10.cpu().numpy(),
+                                  float(e10)),
+            pos=p.cpu().numpy(), vel=v.cpu().numpy(), energy=float(energy),
+            chunk_s=chunk_s, steps=chunks.steps, calls=chunks.calls,
+            capacity=chunks.capacity, launched=launched,
+            captures_after_warm_up=(
+                None if warm[0] is not chunks.run
+                else chunks.run.stats["captures"] - warm[1]))
+        if config["graph"]:
+            k2 = 2 * config["reuse_steps"]
+            g = chunks.run(p, v, box, gvals, data, k2)
+            e = chunks.run.eager(p, v, box, gvals, data, k2)
+            found["graph"] = dict(pos=[x[0].cpu().numpy() for x in (g, e)],
+                                  energy=[float(x[2]) for x in (g, e)],
+                                  steps=k2)
+        out[label] = found
+    return out
+
+
+def slab_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
+               reps):
+    """Phase 15: ``parallel/fused_shard.make_sharded_md_step`` at full
+    width in spawned ranks (see the module docstring): K4 alone, then (a)
+    two ranks on this card over gloo and (b) a rank per card over NCCL,
+    each against the single card's ``make_md_step``."""
+    import functools
+    import tempfile
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
+    from nonbondedslicing_tpu_torch.ops import engine as engine_mod
+    from nonbondedslicing_tpu_torch.ops import fused as fused_mod
+    from nonbondedslicing_tpu_torch.ops import neighbors
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
+    from nonbondedslicing_tpu_torch.runtime.fastpath import (DEFAULT_SKIN,
+                                                             make_md_step)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_parallel_cases
+    f32 = torch.float32
+
+    # ---- the systems: the rigid box under PME and LJPME (pair_column,
+    # SETTLE), the solute box under PME (pair_cell) with phase 13's
+    # clusters: make_sharded_md_step takes no bonds (as the JAX package's),
+    # so the chain is held by its 1-2 pairs as constraints (one 11-wide
+    # cluster, CGLS); without them its excluded pairs drift beyond a cell
+    # width and the span guard raises
+    from nonbondedslicing_tpu_torch.runtime import constraints as cons_mod
+    t0 = time.time()
+    s_system, s_force, s_pos, s_masses, water_cons, bonds, kept = \
+        build_solute_system(nbt, pos_np, box_len)
+    triples, _ = chain_constraints(water_cons, bonds)
+    s_cons = cons_mod.cluster_constraints(triples, len(s_masses))
+    systems = []
+    for method in ("PME", "LJPME"):
+        system, force, _, cons = build_system(nbt, method)
+        systems.append((f"rigid {method}", plan_mod.build_plan(force, system),
+                        pos_np, vel_np, np.tile(WATER_MASSES, N_MOLECULES),
+                        cons))
+    systems.append(("solute PME", plan_mod.build_plan(s_force, s_system),
+                    s_pos, solute_velocities(vel_np, kept), s_masses, s_cons))
+    configs = []
+    for label, plan, p_np, v_np, masses, cons in systems:
+        counts = neighbors.choose_cell_grid(plan.box0, plan.cutoff,
+                                            plan.num_particles,
+                                            target_skin=0.1)[0]
+        occ = max_cell_occupancy(p_np, plan.box0, counts)
+        # the capacity of phases 5 and 6 (the most atoms in a cell + 8),
+        # not choose_cell_grid's 220: the pair kernels' time grows with it,
+        # and the single card runs at this one; an overflow rebuilds the
+        # run with 8 more (Chunks)
+        capacity = max(8, int(np.ceil((occ + 8) / 4) * 4))
+        configs.append((label, plan, p_np, v_np, masses, cons, capacity))
+    print(f"slab: {len(configs)} systems built in {time.time() - t0:.1f} s; "
+          f"capacities {[c[-1] for c in configs]}; the solute's chain held "
+          f"by its 1-2 pairs as constraints, its 1-3 bonds left out "
+          f"(make_sharded_md_step takes no bonds)")
+
+    # ---- K4: pair_column over the first rank's slab at world 2 against
+    # its plain twin, the two slabs against the whole grid, timed beside it
+    for label, plan, p_np, _, _, _, capacity in configs[:2]:
+        prepare, _, cfg = fused_mod.make_fused_engine(
+            plan, cell_capacity=capacity, target_skin=0.1, energies=True)
+        pc = cfg["pair"]
+        pos, box, gvals, data = card_inputs(plan, p_np, f32, dev)
+        st = prepare(pos, box, gvals, data)
+        slot_pos = fused_mod.slot_positions(pos, st, False)
+        lam = slice_lambdas(plan.lam_source, gvals)
+        sl_tab = torch.as_tensor(plan.slice_table, dtype=torch.int64,
+                                 device=dev)
+        planes = pc.counts[1] * pc.counts[2]
+        half = -(-pc.counts[0] // 2) * planes
+        slabs = [(0, half), (half, pc.n_cells - half)]
+        n_pair, _ = pair_counts(slot_pos, st["table"], st["sexcl"], box,
+                                plan.cutoff, plan.num_particles, pc.counts,
+                                (0, half))
+        variants = ((("pair_column_sharded", False),
+                     ("pair_column_energies_sharded", True))
+                    if not pc.ljpme else (("pair_column_ljpme_sharded",
+                                           False),))
+        for name, energies in variants:
+            args = (slot_pos, st["slot_par"], st["slot_sub"], st["table"],
+                    st["sexcl"], lam[:, 0][sl_tab].contiguous(),
+                    lam[:, 1][sl_tab].contiguous(), box, pc, energies,
+                    plan.num_particles)
+            tag = f"{name} ({label}, cells [0, {half}) of {pc.n_cells})"
+            out = pair_kernel_check(
+                tag, functools.partial(cuda_direct.pair_column,
+                                       cells=slabs[0]),
+                functools.partial(cuda_direct.pair_column_plain,
+                                  cells=slabs[0]), args, pc, reps,
+                cell_kernel=False)
+            whole = cuda_direct.pair_column(*args)
+            parts = [cuda_direct.pair_column(*args, cells=c) for c in slabs]
+            torch.cuda.synchronize()
+            check(torch.equal(torch.cat([x[0] for x in parts]), whole[0])
+                  and (not energies or torch.equal(
+                      torch.cat([x[1] for x in parts]), whole[1])),
+                  f"{tag}: the two slabs concatenated equal the whole grid "
+                  f"to the bit, forces" + (" and moments" if energies
+                                           else ""))
+            ms, out["whole_grid_ms"] = timed_pair(
+                lambda: cuda_direct.pair_column(*args, cells=slabs[0]),
+                lambda: cuda_direct.pair_column(*args), reps, what=None)
+            out["bound_ms"], out["bound_by"] = pair_bound(
+                pc, energies, n_pair, 0, cell_kernel=False, out_cells=half)
+            print(f"{tag}: {ms:.4f} ms beside the whole grid's "
+                  f"{out['whole_grid_ms']:.4f} ms ({ms / out['whole_grid_ms']:.3f}"
+                  f" of it), in turns; {n_pair} pairs within the cutoff, "
+                  f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+            results[name] = out
+
+    single = {}
+
+    def gates(tag, ranks):
+        """(a)'s and (b)'s gates over every rank's results; returns the
+        counted launches summed over the ranks and systems."""
+        world = len(ranks)
+        counted = dict.fromkeys(all_launches(), 0)
+        for label, plan, p_np, v_np, masses, cons, capacity in configs:
+            found = [r["slab"][label] for r in ranks]
+            for r, x in enumerate(found[1:], 1):
+                check(np.array_equal(x["pos"], found[0]["pos"])
+                      and np.array_equal(x["vel"], found[0]["vel"])
+                      and x["energy"] == found[0]["energy"],
+                      f"{tag} {label}: rank {r} ends with rank 0's positions, "
+                      f"velocities and energy to the bit")
+            f0, config = found[0], found[0]["config"]
+            solute = "solute" in label
+            n_cons = (int(np.sum(cons[2])) if len(cons) > 2
+                      else int(np.asarray(cons[1]).size))
+            print(f"{tag} {label}: config {config}; {f0['steps']} steps in "
+                  f"{f0['calls']} run() calls, capacity {f0['capacity']}")
+            md_checks(f"{tag} {label}", torch.as_tensor(f0["pos"]),
+                      torch.as_tensor(f0["vel"]), f0["energy"], masses,
+                      SOLUTE_SITES if solute else 0,
+                      3 * plan.num_particles - n_cons - 3, f0["chunk_s"],
+                      plan.num_particles, card)
+            if solute:
+                err = chain_constraint_error(torch.as_tensor(f0["pos"]))
+                check(err <= TOL_CONSTRAINT,
+                      f"{tag} {label}: the chain's 1-2 distances within "
+                      f"{err:.3e} nm of {BOND_R0} <= {TOL_CONSTRAINT}")
+            # the energy at the positions reached, against CPU float64
+            counts = neighbors.choose_cell_grid(
+                plan.box0, plan.cutoff, plan.num_particles,
+                target_skin=DEFAULT_SKIN)[0]
+            occ = max_cell_occupancy(f0["pos"].astype(np.float64),
+                                     plan.box0, counts)
+            E_c = cpu_evaluation(plan, int(np.ceil((occ + 4) / 4) * 4),
+                                 f0["pos"].astype(np.float64), plan.box0,
+                                 plan.global_defaults)[0]
+            rel_e = abs(f0["energy"] - E_c) / abs(E_c)
+            check(math.isfinite(f0["energy"]) and rel_e <= TOL_EVAL_ENERGY,
+                  f"{tag} {label}: energy {f0['energy']:.6f} at the state "
+                  f"reached, CPU f64 {E_c:.6f} kJ/mol, {rel_e:.3e} relative "
+                  f"<= {TOL_EVAL_ENERGY}")
+            # SLAB_CHECK_STEPS steps against the single card's
+            s = single.get(label)
+            if s is None:
+                s = single[label] = single_card(label, plan, p_np, v_np,
+                                                masses, cons, capacity,
+                                                config["reuse_steps"])
+            err = float(np.abs(f0["check"][0] - s["check"][0]).max())
+            rel = abs(f0["check"][2] - s["check"][2]) / abs(s["check"][2])
+            check(err <= s["tol"] and rel <= TOL_EVAL_ENERGY,
+                  f"{tag} {label}: {SLAB_CHECK_STEPS} steps from the "
+                  f"starting state, positions {err:.3e} nm from the single "
+                  f"card's make_md_step (K {config['reuse_steps']}, capacity "
+                  f"{capacity}, cells {config['counts']}; {s['grids']}) <= "
+                  f"{s['tol']:.3e} (slab_md_tolerance), energy {rel:.3e} "
+                  f"relative <= {TOL_EVAL_ENERGY}")
+            pair = ("pair_cell" if config["pair"] == "pair_cell"
+                    else "pair_column_ljpme" if "LJPME" in label
+                    else "pair_column")
+            for r, x in enumerate(found):
+                begin, end = x["cells"]
+                want = ({pair: x["steps"], pair + "_energies": x["calls"]}
+                        if end > begin else {})
+                check(x["launched"] == want,
+                      f"{tag} {label}: rank {r} (cells [{begin}, {end})) "
+                      f"launched {x['launched']} in its run: {pair} once a "
+                      f"step, its energies variant once a run()"
+                      if want else f"{tag} {label}: rank {r} owns no cell "
+                      f"and launched {x['launched']}: no kernel")
+                for k, n in x["launched"].items():
+                    counted[k] += n
+            check(all(x["captures_after_warm_up"] in (None, 0)
+                      for x in found),
+                  f"{tag} {label}: no capture after the warm-up chunk "
+                  f"({[x['captures_after_warm_up'] for x in found]}; None: "
+                  f"a guard rebuilt the run)")
+            if config["graph"]:
+                g = f0["graph"]
+                err = float(np.abs(g["pos"][0] - g["pos"][1]).max())
+                rel = abs(g["energy"][0] - g["energy"][1]) / abs(
+                    g["energy"][1])
+                check(err <= TOL_SLAB_GRAPH and rel <= TOL_SHARD_ENERGY,
+                      f"{tag} {label}: {g['steps']} steps of the graph "
+                      f"against the eager body, positions {err:.3e} nm <= "
+                      f"{TOL_SLAB_GRAPH}, energy {rel:.3e} relative <= "
+                      f"{TOL_SHARD_ENERGY}")
+            per_rank = [round(float(np.median(
+                [1e3 * t / CHUNK_STEPS for t in x["chunk_s"][1:]])), 3)
+                for x in found]
+            print(f"{tag} {label}: {per_rank} ms/step on ranks 0..{world - 1}"
+                  f" (median of {len(f0['chunk_s']) - 1} x {CHUNK_STEPS} "
+                  f"steps, graph {config['graph']}), single card "
+                  f"make_md_step {s['ms']:.3f} ms/step at the same K and "
+                  f"capacity ({card})")
+        return counted
+
+    def single_card(label, plan, p_np, v_np, masses, cons, capacity, K):
+        """The single card's make_md_step at the slab step's cells (target
+        skin 0.1), K and capacity: SLAB_CHECK_STEPS steps from the given
+        state and the ms/step of a warm-up and SLAB_TIMED_CHUNKS chunks."""
+        def make_run(cap, reuse):
+            return make_md_step(plan, masses, dt=DT_PS, dtype=f32,
+                                cell_capacity=cap, reuse_steps=reuse,
+                                constraints=cons, target_skin=0.1)
+
+        pos, box, gvals, data = card_inputs(plan, p_np, f32, dev)
+        vel = torch.as_tensor(v_np, device=dev).to(f32)
+        run = make_run(capacity, K)
+        p10, v10, e10 = run(pos, vel, box, gvals, data, SLAB_CHECK_STEPS)
+        chunks = Chunks(make_run, capacity, nbt.OpenMMException)
+        chunks.reuse = K
+        *_, chunk_s, _ = run_md(chunks, pos, vel, box, gvals, data,
+                                SLAB_TIMED_CHUNKS)
+        grids = [f"PME grid {tuple(plan.pme_grid)} against "
+                 f"{run.config['pme_grid']}"]
+        if "dispersion_grid" in run.config:
+            grids.append(f"dispersion grid {tuple(plan.dispersion_grid)} "
+                         f"against {run.config['dispersion_grid']}")
+        df = grid_force_difference(
+            plan, fused_mod.fused_config(plan, capacity, target_skin=0.1),
+            p_np, dev)
+        tol = slab_md_tolerance(df, float(np.min(masses[masses > 0])))
+        return dict(check=(p10.cpu().numpy(), v10.cpu().numpy(), float(e10)),
+                    ms=float(np.median([1e3 * t / CHUNK_STEPS
+                                        for t in chunk_s[1:]])),
+                    grids=(", ".join(grids) + f" (aligned to the bricks): "
+                           f"reciprocal forces {df:.3e} kJ/mol/nm apart"),
+                    tol=tol)
+
+    # ---- (a) two ranks on this card over gloo
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = torch_parallel_cases.run_ranks(
+            2, tmp, [("slab", "chip_smoke:slab_rank",
+                      dict(configs=configs, timed_chunks=SLAB_TIMED_CHUNKS))],
+            backend="gloo", devices=[str(dev)] * 2, timeout=SHARD_TIMEOUT)
+    print(f"slab (a): 2 ranks over gloo on {dev} in {time.time() - t0:.1f} s")
+    counted = gates("slab (a) gloo", ranks)
+    check_launches("slab (a) gloo", "slab", counted)
+    run_launches["slab"] = counted
+
+    # ---- (b) a rank per card over NCCL
+    world = torch.cuda.device_count()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = torch_parallel_cases.run_ranks(
+            world, tmp, [("slab", "chip_smoke:slab_rank",
+                          dict(configs=configs,
+                               timed_chunks=SLAB_TIMED_CHUNKS))],
+            backend="nccl", devices=[f"cuda:{r}" for r in range(world)],
+            timeout=SHARD_TIMEOUT)
+    print(f"slab (b): {world} rank(s) over NCCL, one a card, in "
+          f"{time.time() - t0:.1f} s")
+    check(all(r["slab"][label]["config"]["graph"] for r in ranks
+              for label, *_ in configs),
+          "slab (b) nccl: the windows replay CUDA graphs, the force "
+          "all_reduce captured")
+    check_launches("slab (b) nccl", "slab", gates("slab (b) nccl", ranks))
+
+
 def main():
     if not os.path.isdir(PACKAGE) or not os.path.exists(STATE_FILE):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2776,13 +3239,18 @@ def main():
         _, _, box_len, _ = build_system(nbt)
         blob = np.load(STATE_FILE)
         results, run_launches = {}, {}
-        sharded_phase(dev, card, results, run_launches,
-                      np.asarray(blob["positions"], dtype=np.float64),
-                      np.asarray(blob["velocities"], dtype=np.float64),
-                      box_len, 20)
+        state = (np.asarray(blob["positions"], dtype=np.float64),
+                 np.asarray(blob["velocities"], dtype=np.float64))
+        t0 = time.time()
+        sharded_phase(dev, card, results, run_launches, *state, box_len, 20)
+        print(f"sharded: {time.time() - t0:.1f} s")
+        # ---- 15 alone
+        t0 = time.time()
+        slab_phase(dev, card, results, run_launches, *state, box_len, 20)
+        print(f"slab: {time.time() - t0:.1f} s")
         print(f"total: {time.time() - t_start:.1f} s")
         print_last_lines(kind, results, run_launches,
-                         [e for e in ENTRIES if e[2] == "sharded"])
+                         [e for e in ENTRIES if e[2] in ("sharded", "slab")])
         return 0
 
     # ---- system, plan, state
@@ -3236,6 +3704,12 @@ def main():
     sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
                   reps)
     print(f"sharded: {time.time() - t0:.1f} s")
+
+    # ---- 15. the slab-decomposed MD step in spawned ranks
+    t0 = time.time()
+    slab_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
+               reps)
+    print(f"slab: {time.time() - t0:.1f} s")
     print(f"total: {time.time() - t_start:.1f} s")
     print_last_lines(kind, results, run_launches, ENTRIES)
     return 0

@@ -285,13 +285,11 @@ pair_cell_kernel(const float* __restrict__ pos,
 
 }  // namespace
 
-// The arguments of nbs_pair_column (pair_column.cu), with pos the raw
+// The arguments of nbs_pair_column (pair_column.cu), the range of home
+// cells [cell_begin, cell_begin + cell_count) included, with pos the raw
 // (unshifted) slot positions, plus exceptions_periodic (nonzero: exclusion
-// corrections on the minimum-image delta) and the range of home cells
-// [cell_begin, cell_begin + cell_count) whose rows are computed: forces
-// holds (cell_count, 3, C), moments cell_count * row_blocks panels.  The
-// slot tensors are the whole grid's, so a block's result is the same in
-// whichever range it is launched.  Returns the cudaError_t of the launch.
+// corrections on the minimum-image delta) before the range.  Returns the
+// cudaError_t of the launch.
 extern "C" int nbs_pair_cell(const void* pos, const void* par,
                              const void* sub, const void* ids,
                              const void* excl, const void* lam_c,

@@ -69,8 +69,11 @@ pair_column_kernel(const float* __restrict__ pos,
     const Shared s = carve(smem, p, false);
     const int C = p.capacity;
     const int nsub = p.nsub;
-    const int cell = blockIdx.x / p.row_blocks;
-    const int chunk = blockIdx.x - cell * p.row_blocks;
+    // the block's home cell, and its place among the launch's cells, which
+    // is its place in `forces` (blockIdx.x is its place in `moments`)
+    const int local = blockIdx.x / p.row_blocks;
+    const int cell = p.cell_begin + local;
+    const int chunk = blockIdx.x - local * p.row_blocks;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
@@ -89,7 +92,7 @@ pair_column_kernel(const float* __restrict__ pos,
         for (int t = chunk + p.row_blocks * warp; t < C;
              t += p.row_blocks * nwarps) {
             if (ids[cell * C + t] >= p.n_real) {
-                if (o0 == 0) zero_row(forces, cell, t, C);
+                if (o0 == 0) zero_row(forces, local, t, C);
                 continue;
             }
             const Row row =
@@ -162,8 +165,8 @@ pair_column_kernel(const float* __restrict__ pos,
                 while (queue.count >= 32) batch(32);
             }
             if (queue.count > 0) batch(queue.count);
-            finish_row<ENERGIES>(acc, row.sub, o0 == 0, forces, cell, t, C,
-                                 nsub, my_panel);
+            finish_row<ENERGIES>(acc, row.sub, o0 == 0, forces, local, t,
+                                 C, nsub, my_panel);
         }
     }
     if (ENERGIES) store_moments(s, nsub, moments);
@@ -177,9 +180,12 @@ pair_column_kernel(const float* __restrict__ pos,
 // n_real or more are pads; cutoff2 is the squared cutoff rounded once to
 // float.  ljpme != 0 (Ewald mode only) adds the dispersion terms of
 // dispersion_alpha, with inv_cut6 and disp_cut the constants of its energy
-// shift.  Writes forces (cells, 3, C) and, when energies != 0, moments
-// (cells * row_blocks, 2, nsub, nsub) with row_blocks from
-// nbs_pair_launch_shape.  Returns the cudaError_t of the launch.
+// shift.  The rows computed are those of the home cells [cell_begin,
+// cell_begin + cell_count): writes forces (cell_count, 3, C) and, when
+// energies != 0, moments (cell_count * row_blocks, 2, nsub, nsub) with
+// row_blocks from nbs_pair_launch_shape.  The slot tensors are the whole
+// grid's, so a block's result is the same in whichever range it is
+// launched.  Returns the cudaError_t of the launch.
 extern "C" int nbs_pair_column(const void* pos, const void* par,
                                const void* sub, const void* ids,
                                const void* excl, const void* lam_c,
@@ -187,12 +193,14 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
                                void* forces, void* moments, int ncx, int ncy,
                                int ncz, int capacity, int nsub, int emax,
                                int mode, int use_switch, int n_real,
-                               int ljpme, float cutoff, float cutoff2,
+                               int cell_begin, int cell_count, int ljpme,
+                               float cutoff, float cutoff2,
                                float switch_distance, float krf, float crf,
                                float alpha, float dispersion_alpha,
                                float inv_cut6, float disp_cut, float sqrt_ke,
                                int energies, void* stream) {
-    if (!shapes_ok(capacity, nsub, emax, mode, ljpme)) {
+    if (!shapes_ok(capacity, nsub, emax, mode, ljpme) || cell_begin < 0
+        || cell_count < 1 || cell_begin + cell_count > ncx * ncy * ncz) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const LaunchShape g =
@@ -200,7 +208,7 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
     PairParams p{ncx, ncy, ncz, capacity, nsub, emax, mode, use_switch,
                  n_real, g.row_blocks, g.tile_cells, g.cand_stride,
                  cutoff, cutoff2, switch_distance, krf, crf, alpha, sqrt_ke,
-                 dispersion_alpha, inv_cut6, disp_cut};
+                 dispersion_alpha, inv_cut6, disp_cut, cell_begin};
     // [energies][ljpme][a list longer than a warp]
     using Kernel = decltype(&pair_column_kernel<false, false, false>);
     static const Kernel kernels[8] = {
@@ -215,7 +223,7 @@ extern "C" int nbs_pair_column(const void* pos, const void* par,
     const Kernel kernel = kernels[4 * (energies != 0) + 2 * (ljpme != 0)
                                   + (emax > kWarpList)];
     return launch_rows(
-        kernel, g, ncx * ncy * ncz, static_cast<cudaStream_t>(stream),
+        kernel, g, cell_count, static_cast<cudaStream_t>(stream),
         static_cast<const float*>(pos), static_cast<const float*>(par),
         static_cast<const int*>(sub), static_cast<const int*>(ids),
         static_cast<const int*>(excl), static_cast<const float*>(lam_c),

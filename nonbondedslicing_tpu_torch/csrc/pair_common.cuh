@@ -79,8 +79,8 @@ struct PairParams {
     // LJPME: the dispersion alpha, 1 / cutoff^6 and the dispersion factor
     // at the cutoff over cutoff^6 (cuda_direct.dispersion_cutoff_terms)
     float dispersion_alpha, inv_cut6, disp_cut;
-    // the cell kernel: the first home cell of the launch (its blocks take
-    // cells cell_begin, cell_begin + 1, ...); 0 where not set
+    // the first home cell of the launch (its blocks take cells cell_begin,
+    // cell_begin + 1, ...)
     int cell_begin;
 };
 

@@ -44,13 +44,14 @@ over (home subset a, partner subset b) with weight 1/2 (every pair is
 visited from both sides).  Readers sum the panels (in float64): the plain
 twins give one panel per cell, the kernels one per block (``row_blocks``
 blocks per cell, ``pair_launch_shape``).  Slice energies are then m[a, a]
-on the diagonal and m[a, b] + m[b, a] off it.  ``pair_cell`` and its twin
-also take a range of home cells (``cells=(begin, count)``, the whole grid by
-default): only those cells' rows are computed, against the whole grid's
-slots, and the outputs hold those cells (forces (count, 3, C)) and their
-panels; a cell's rows come out the same to the bit in whichever range they
-are computed, so the ranges of a sharded evaluation
-(``kernel_direct.make_kernel_direct_space(shard=...)``) add up to the
+on the diagonal and m[a, b] + m[b, a] off it.  Both kernels and their
+twins also take a range of home cells (``cells=(begin, count)``, the whole
+grid by default): only those cells' rows are computed, against the whole
+grid's slots, and the outputs hold those cells (forces (count, 3, C)) and
+their panels; a cell's rows come out the same to the bit in whichever range
+they are computed, so the ranges of a sharded evaluation
+(``kernel_direct.make_kernel_direct_space(shard=...)`` on ``pair_cell``,
+``parallel/fused_shard.make_sharded_md_step`` on either) add up to the
 whole-grid call.
 
 The kernels' design (``csrc/pair_common.cuh``): on an H100 they are bound
@@ -361,10 +362,12 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
 
 
 def pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                      lam_c_nn, lam_v_nn, box, cfg, energies, n_real):
+                      lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
+                      cells=None):
     """Plain torch twin of ``csrc/pair_column.cu``."""
     return _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
-                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, False)
+                       lam_c_nn, lam_v_nn, box, cfg, energies, n_real, False,
+                       cells)
 
 
 def pair_cell_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
@@ -423,9 +426,9 @@ def pair_launch_shape(cfg, cell_kernel, energies):
 def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
             lam_c_nn, lam_v_nn, box, cfg, energies, n_real, cell_kernel,
             cells=None):
-    """Check the slot tensors, allocate the outputs, launch ``entry`` (the
-    cell kernel over the home cells ``cells``) and count the launch under
-    its variant's name."""
+    """Check the slot tensors, allocate the outputs, launch ``entry`` over
+    the home cells ``cells`` and count the launch under its variant's
+    name."""
     dev = slot_pos.device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
@@ -455,7 +458,7 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
         forces.data_ptr(), None if moments is None else moments.data_ptr(),
         ncx, ncy, ncz, C, nsub, cfg.emax, cfg.mode, int(cfg.use_switch),
         int(n_real),
-        *([int(cfg.exceptions_periodic), lo, hi - lo] if cell_kernel else []),
+        *([int(cfg.exceptions_periodic)] if cell_kernel else []), lo, hi - lo,
         int(cfg.ljpme), cfg.cutoff, cfg.cutoff * cfg.cutoff,
         cfg.switch_distance, cfg.krf, cfg.crf, cfg.ewald_alpha,
         cfg.dispersion_alpha, *dispersion_cutoff_terms(cfg),
@@ -468,18 +471,20 @@ def _launch(entry, slot_pos, slot_par, slot_sub, slot_ids, slot_excl,
 
 
 def pair_column(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
-                lam_v_nn, box, cfg, energies, n_real):
-    """Pair forces (n_cells, 3, C) and moment panels (n_panels, 2, nsub,
-    nsub) or None.  Slots whose atom index is ``n_real`` or more are pads,
-    which the caller has moved beyond the cutoff of every slot.  CPU
-    tensors take the plain twin; CUDA tensors launch the kernel."""
+                lam_v_nn, box, cfg, energies, n_real, cells=None):
+    """Pair forces (count, 3, C) and moment panels (n_panels, 2, nsub,
+    nsub) or None for the home cells ``cells`` = (begin, count) (default:
+    the whole grid, count = n_cells).  Slots whose atom index is
+    ``n_real`` or more are pads, which the caller has moved beyond the
+    cutoff of every slot.  CPU tensors take the plain twin; CUDA tensors
+    launch the kernel."""
     if slot_pos.device.type == "cpu":
         return pair_column_plain(slot_pos, slot_par, slot_sub, slot_ids,
                                  slot_excl, lam_c_nn, lam_v_nn, box, cfg,
-                                 energies, n_real)
+                                 energies, n_real, cells)
     return _launch("nbs_pair_column", slot_pos, slot_par, slot_sub, slot_ids,
                    slot_excl, lam_c_nn, lam_v_nn, box, cfg, energies, n_real,
-                   False)
+                   False, cells)
 
 
 def pair_cell(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,

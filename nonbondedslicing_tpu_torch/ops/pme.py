@@ -317,9 +317,11 @@ def interpolate_forces(phi, charges, subsets, index, theta, dtheta, recip,
 def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
                    grid_shape, moduli, num_subsets, slice_subset_pairs,
                    slice_table, dispersion=False, order=5, eterm=None,
-                   group=None):
+                   group=None, energies=True):
     """Sliced PME of one term (Coulomb charges, or LJPME's C6 with
-    ``dispersion``) on atoms: (slice energies (S,) float64, forces (N, 3)).
+    ``dispersion``) on atoms: (slice energies (S,) float64, forces (N, 3));
+    ``energies=False`` skips the energies (and their float64 spread) and
+    returns None for them.
     ``eterm`` optionally supplies the z-half convolution kernel, valid
     while the box is the one it was built from; else it is built from
     ``box``.  ``moduli`` (the three B-spline moduli), ``slice_subset_pairs``
@@ -348,7 +350,9 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
         make = dispersion_eterm if dispersion else coulomb_eterm
         eterm = make(grid_shape, moduli, box, recip, alpha, half=True)
     spectra = torch.fft.rfftn(grid, dim=(1, 2, 3))
-    if positions.dtype == torch.float64:
+    if not energies:
+        slice_energies = None
+    elif positions.dtype == torch.float64:
         spectra64 = spectra
     else:
         f64 = torch.float64
@@ -360,10 +364,12 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
         if group is not None:
             collectives.all_reduce(grid64, group)
         spectra64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
-    slice_energies = pme_slice_energies_ri(
-        spectra64.real, spectra64.imag,
-        eterm.to(torch.float64) * rfft_energy_weights(nz, positions.device),
-        slice_subset_pairs)
+    if energies:
+        slice_energies = pme_slice_energies_ri(
+            spectra64.real, spectra64.imag,
+            eterm.to(torch.float64) * rfft_energy_weights(nz,
+                                                          positions.device),
+            slice_subset_pairs)
     # the unnormalized inverse: phi(r) = sum_k eterm S(k) e^{+ik.r}
     phi = torch.fft.irfftn(spectra * eterm[None], s=grid_shape,
                            dim=(1, 2, 3)) * (nx * ny * nz)

@@ -11,7 +11,11 @@ takes a range of ceil(N / size) atoms:
 * **convolution + slice energies**: the FFTs, the convolution and the slice
   energies run on every rank, on the summed grids;
 * **interpolate**: each rank interpolates the forces of its own atoms, and
-  the forces are assembled over the group (``collectives.assemble``).
+  the forces are assembled over the group (``collectives.assemble``), or
+  (the device terms, :func:`make_pme_device_term` and
+  :func:`make_ewald_device_term`) returned as the rank's range, which the
+  slab MD step writes into its own force sum.  Force-only calls skip the
+  slice energies and, in float32, their float64 grid.
 
 Bare Ewald sums each k-chunk's per-subset structure factors over the group
 (``ops/ewald.ewald_reciprocal(group=)``), with every rank's range padded
@@ -71,8 +75,8 @@ def make_pme_device_term(group, num_particles, *, alpha, grid_shape, moduli,
             subsets[start:end], lam_s, alpha=alpha, grid_shape=grid_shape,
             moduli=mod, num_subsets=num_subsets, slice_subset_pairs=pairs,
             slice_table=table, dispersion=dispersion, order=order,
-            eterm=eterm, group=group)
-        return (slice_e if energies else None), f_s, start
+            eterm=eterm, group=group, energies=energies)
+        return slice_e, f_s, start
 
     return rows, n_pad, term
 
@@ -100,22 +104,24 @@ def make_sharded_pme(group, num_particles, *, alpha, grid_shape, moduli,
     return run
 
 
-def make_sharded_ewald(group, num_particles, *, kvec_ints, alpha,
-                       num_subsets, slice_table, slice_subset_pairs):
-    """Bare-Ewald k-space sum sharded over ``group`` by atom range: each
-    rank takes ceil(N / size) atoms (padded with zero charges), the
-    per-subset structure factors of every k-chunk are summed over the
-    group, the slice energies run on every rank and the forces cover the
-    rank's atoms, assembled over the group.  Same return contract as
-    ``ops/ewald.ewald_reciprocal``; ``kvec_ints`` and the tables may be
-    numpy arrays."""
+def make_ewald_device_term(group, num_particles, *, kvec_ints, alpha,
+                           num_subsets, slice_table, slice_subset_pairs):
+    """One rank's share of the bare-Ewald k-space sum: it takes ceil(N /
+    size) atoms (padded with zero charges), the per-subset structure
+    factors of every k-chunk are summed over ``group``, the slice energies
+    run on every rank and the forces cover the rank's atoms.
+
+    Returns f(positions, box, charges, subsets, lam_s, energies=True)
+      -> (slice_energies (S,) float64 or None, forces of the range
+          (end - start, 3), start).
+    ``kvec_ints`` and the tables may be numpy arrays."""
     _, size = collectives.rank_and_size(group)
     rows = -(-num_particles // size)
     start, end = collectives.share(num_particles, group)
     pad = rows - (end - start)
     cache = {}
 
-    def run(positions, box, charges, subsets, lam_s):
+    def term(positions, box, charges, subsets, lam_s, energies=True):
         kv, table, pairs = _on(positions.device, cache,
                                (kvec_ints, slice_table, slice_subset_pairs))
 
@@ -126,8 +132,26 @@ def make_sharded_ewald(group, num_particles, *, kvec_ints, alpha,
         slice_e, f_s = ewald.ewald_reciprocal(
             mine(positions), box, mine(charges), mine(subsets), lam_s,
             kvec_ints=kv, alpha=alpha, num_subsets=num_subsets,
-            slice_table=table, slice_subset_pairs=pairs, group=group)
-        return slice_e, collectives.assemble(f_s[:end - start], start,
-                                             num_particles, group)
+            slice_table=table, slice_subset_pairs=pairs, energies=energies,
+            group=group)
+        return slice_e, f_s[:end - start], start
+
+    return term
+
+
+def make_sharded_ewald(group, num_particles, *, kvec_ints, alpha,
+                       num_subsets, slice_table, slice_subset_pairs):
+    """Bare-Ewald k-space sum sharded over ``group`` by atom range
+    (:func:`make_ewald_device_term`), the forces assembled over the group.
+    Same return contract as ``ops/ewald.ewald_reciprocal``."""
+    term = make_ewald_device_term(
+        group, num_particles, kvec_ints=kvec_ints, alpha=alpha,
+        num_subsets=num_subsets, slice_table=slice_table,
+        slice_subset_pairs=slice_subset_pairs)
+
+    def run(positions, box, charges, subsets, lam_s):
+        slice_e, f_s, start = term(positions, box, charges, subsets, lam_s)
+        return slice_e, collectives.assemble(f_s, start, num_particles,
+                                             group)
 
     return run

@@ -93,6 +93,44 @@ def _bond_forces_fn(bonds, n, periodic=False, box=None):
     return bond_forces
 
 
+def make_integrator(masses, dt, dtype, constraints=None):
+    """The leapfrog step of the MD loops (``make_md_step`` and
+    ``parallel/fused_shard.make_sharded_md_step``):
+    integrate(pos, vel, forces) -> (pos, vel).  The kick v += dt F / m in
+    ``dtype`` (massless atoms do not move); the update, the constraint
+    solve and the velocity from the constrained displacement in the
+    positions' dtype (float64 under mixed precision), the velocity stored
+    in ``dtype``.  ``constraints`` = (pairs, dists[, mask]) adds the
+    projections of ``runtime.constraints.make_constrainer``.
+    ``integrate.capturable`` says whether the step can be captured in a
+    CUDA graph."""
+    m_np = np.asarray(masses, dtype=np.float64)
+    inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
+    inv_m_dev = {}
+    if constraints is not None:
+        from .constraints import make_constrainer
+        c_mask = constraints[2] if len(constraints) > 2 else None
+        proj_x, proj_v = make_constrainer(constraints[0], constraints[1],
+                                          masses, len(m_np), mask=c_mask)
+    else:
+        proj_x = proj_v = None
+
+    def integrate(pos, vel, forces):
+        dev = vel.device
+        if dev not in inv_m_dev:
+            # copied once: a host->device copy cannot be captured
+            inv_m_dev[dev] = torch.as_tensor(inv_m_np, device=dev).to(dtype)
+        vel = vel + dt * forces * inv_m_dev[dev]
+        if proj_x is None:
+            return pos + dt * vel.to(pos.dtype), vel
+        pos_new = proj_x(pos, pos + dt * vel.to(pos.dtype))
+        vel_new = proj_v(pos_new, (pos_new - pos) / dt)
+        return pos_new, vel_new.to(vel.dtype)
+
+    integrate.capturable = proj_x is None or proj_x.__self__.capturable
+    return integrate
+
+
 # the kernel wrappers' launch counters (name -> launches).  A replay moves
 # no Python, so a capture records what one replay launches, takes it back
 # out of the counters, and each replay adds it: the counts stay the number
@@ -204,6 +242,53 @@ class _WindowGraphs:
                 (b["ov"], b["dmax"], b["span"]))
 
 
+def run_windows(window, graphs, reuse_steps, n_steps, pos, vel, box, gvals,
+                data, graphed):
+    """``n_steps`` steps in windows of ``reuse_steps`` (K) steps and a
+    shorter last one: replays of ``graphs`` (a :class:`_WindowGraphs` of
+    ``window``) when ``graphed`` and on CUDA tensors, else ``window``
+    called eagerly.  Returns (positions, velocities, (ov, dmax, span)),
+    the guard maxima over the windows."""
+    n_outer, rem = divmod(int(n_steps), reuse_steps)
+    blocks = [reuse_steps] * n_outer + ([rem] if rem else [])
+    if graphed and pos.device.type == "cuda":
+        return graphs.run(blocks, pos, vel, box, gvals, data)
+    dev = pos.device
+    acc = dict(ov=torch.zeros((), dtype=torch.int64, device=dev),
+               dmax=torch.zeros((), dtype=vel.dtype, device=dev),
+               span=torch.zeros((), dtype=torch.float64, device=dev))
+    for k in blocks:
+        pos, vel = window(k, pos, vel, box, gvals, data, acc)
+    return pos, vel, (acc["ov"], acc["dmax"], acc["span"])
+
+
+def check_guards(ov, dmax, span, disp_limit2, skin, scope=""):
+    """Raise OpenMMException after a run whose cell capacity overflowed
+    (``ov`` atoms dropped), whose excluded pairs spanned a cell width or
+    more (``span``, on the cell kernel's path) or in which an atom moved
+    more than skin/2 between rebuilds (``dmax`` the largest squared
+    displacement, against ``disp_limit2``); ``scope`` names the run in the
+    messages.  One device->host transfer."""
+    ov_cell, dmax_h, span_h = torch.stack(
+        [ov.to(torch.float64), dmax.to(torch.float64), span]).tolist()
+    if ov_cell > 0:
+        raise OpenMMException(
+            f"Cell-list capacity overflow ({int(ov_cell)} atoms dropped)"
+            f"{scope}: the density fluctuation exceeded the static cell "
+            "capacity. Rebuild with a larger cell_capacity.")
+    if span_h >= 1.0:
+        raise OpenMMException(
+            "SlicedNonbondedForce: an excluded pair spans more than one "
+            f"neighbor-list cell ({span_h:.3f} cell widths along an "
+            "axis); the fused engine corrects only the excluded pairs of "
+            "neighbouring cells, so excluded pairs must be bonded-range.")
+    if dmax_h > disp_limit2:
+        raise OpenMMException(
+            f"Neighbor-list skin violation{scope}: an atom moved "
+            f"{dmax_h ** 0.5:.4f} nm between rebuilds "
+            f"(> skin/2 = {0.5 * skin:.4f} nm). Reduce reuse_steps.")
+
+
 def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                  reuse_steps=None, constraints=None, target_skin=DEFAULT_SKIN,
                  mixed_precision=False, bonds=None, bonds_periodic=False,
@@ -267,42 +352,20 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     pos_dtype = torch.float64 if mixed else dtype
     n = plan.num_particles
     m_np = np.asarray(masses, dtype=np.float64)
-    inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
     box0 = None if plan.box0 is None else np.asarray(plan.box0,
                                                       dtype=np.float64)
     bond_forces = _bond_forces_fn(bonds, n, periodic=bonds_periodic,
                                   box=box0)
-    graph_ok = True
-    if constraints is not None:
-        from .constraints import make_constrainer
-        c_mask = constraints[2] if len(constraints) > 2 else None
-        proj_x, proj_v = make_constrainer(constraints[0], constraints[1],
-                                          masses, n, mask=c_mask)
-        graph_ok = proj_x.__self__.capturable
-    else:
-        proj_x = proj_v = None
-    device_consts = {}
+    integrate = make_integrator(masses, dt, dtype, constraints)
+    graph_ok = integrate.capturable
+    lam_sources = {}
 
-    def consts(dev):
-        """Inverse masses and the lambda sources on ``dev``, copied once."""
-        if dev not in device_consts:
-            device_consts[dev] = (
-                torch.as_tensor(inv_m_np, device=dev).to(dtype),
-                torch.as_tensor(plan.lam_source, dtype=torch.int64,
-                                device=dev))
-        return device_consts[dev]
-
-    def integrate(pos, vel, forces, inv_m):
-        """The kick in ``dtype``; the update, the constraint solve and the
-        velocity from the constrained displacement in the positions'
-        dtype (float64 under mixed precision), the velocity stored in
-        ``dtype``."""
-        vel = vel + dt * forces * inv_m
-        if proj_x is None:
-            return pos + dt * vel.to(pos.dtype), vel
-        pos_new = proj_x(pos, pos + dt * vel.to(pos.dtype))
-        vel_new = proj_v(pos_new, (pos_new - pos) / dt)
-        return pos_new, vel_new.to(vel.dtype)
+    def lam_source(dev):
+        """The lambda sources on ``dev``, copied once."""
+        if dev not in lam_sources:
+            lam_sources[dev] = torch.as_tensor(plan.lam_source,
+                                               dtype=torch.int64, device=dev)
+        return lam_sources[dev]
 
     def with_bonds(forces, pos32):
         return forces if bond_forces is None else forces + bond_forces(pos32)
@@ -322,12 +385,10 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         def window(k, pos, vel, box, gvals, data, acc):
             """``k`` steps, each with its own evaluation of the generic
             engine; the guard maxima go into ``acc`` in place."""
-            inv_m = consts(pos.device)[0]
             for _ in range(k):
                 pos32 = pos.to(dtype)
                 _, forces, aux = compute(pos32, box, gvals, data)
-                pos, vel = integrate(pos, vel, with_bonds(forces, pos32),
-                                     inv_m)
+                pos, vel = integrate(pos, vel, with_bonds(forces, pos32))
                 torch.maximum(acc["ov"], aux["overflow"], out=acc["ov"])
                 if "excl_span" in aux:
                     torch.maximum(acc["span"], aux["excl_span"],
@@ -362,13 +423,11 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
             """One window: the slot rebuild at ``pos``, then ``k`` steps.
             Returns (positions, velocities) and takes the guard maxima into
             ``acc``'s ``ov``, ``dmax`` and ``span`` in place."""
-            inv_m = consts(pos.device)[0]
             state = prepare(pos.to(dtype), box, gvals, data)
             for _ in range(k):
                 pos32 = pos.to(dtype)
                 _, forces, aux = apply(pos32, box, gvals, data, state)
-                pos, vel = integrate(pos, vel, with_bonds(forces, pos32),
-                                     inv_m)
+                pos, vel = integrate(pos, vel, with_bonds(forces, pos32))
                 torch.maximum(acc["dmax"], aux["maxdisp2"], out=acc["dmax"])
             torch.maximum(acc["ov"], state["overflow"], out=acc["ov"])
             if "excl_span" in state:
@@ -403,44 +462,17 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         pos = torch.as_tensor(pos, device=dev).to(pos_dtype)
         vel = torch.as_tensor(vel, device=dev).to(dtype)
         gvals = torch.as_tensor(gvals, device=dev).to(dtype)
-        n_outer, rem = divmod(int(n_steps), K)
-        blocks = [K] * n_outer + ([rem] if rem else [])
-        if graphed and graph_ok and dev.type == "cuda":
-            pos, vel, (ov, dmax, span) = graphs.run(blocks, pos, vel, box,
-                                                    gvals, data)
-        else:
-            acc = dict(ov=torch.zeros((), dtype=torch.int64, device=dev),
-                       dmax=torch.zeros((), dtype=dtype, device=dev),
-                       span=torch.zeros((), dtype=torch.float64, device=dev))
-            for k in blocks:
-                pos, vel = window(k, pos, vel, box, gvals, data, acc)
-            ov, dmax, span = acc["ov"], acc["dmax"], acc["span"]
+        pos, vel, (ov, dmax, span) = run_windows(
+            window, graphs, K, n_steps, pos, vel, box, gvals, data,
+            graphed and graph_ok)
         # the evaluation with energies for the reported energy, eager
         slice_e, ov_final, span_final = final(pos.to(dtype), box, gvals, data)
         ov = torch.maximum(ov, ov_final)
         if span_final is not None:
             span = torch.maximum(span, span_final)
         energy = engine_mod.contract_energy(
-            slice_e, slice_lambdas(consts(dev)[1], gvals))
-        # one device->host transfer for the guards
-        ov_cell, dmax_h, span_h = torch.stack(
-            [ov.to(torch.float64), dmax.to(torch.float64), span]).tolist()
-        if ov_cell > 0:
-            raise OpenMMException(
-                f"Cell-list capacity overflow ({int(ov_cell)} atoms dropped): "
-                "the density fluctuation exceeded the static cell capacity. "
-                "Rebuild with a larger cell_capacity.")
-        if span_h >= 1.0:
-            raise OpenMMException(
-                "SlicedNonbondedForce: an excluded pair spans more than one "
-                f"neighbor-list cell ({span_h:.3f} cell widths along an "
-                "axis); the fused engine corrects only the excluded pairs of "
-                "neighbouring cells, so excluded pairs must be bonded-range.")
-        if dmax_h > disp_limit2:
-            raise OpenMMException(
-                "Neighbor-list skin violation: an atom moved "
-                f"{dmax_h ** 0.5:.4f} nm between rebuilds "
-                f"(> skin/2 = {0.5 * skin:.4f} nm). Reduce reuse_steps.")
+            slice_e, slice_lambdas(lam_source(dev), gvals))
+        check_guards(ov, dmax, span, disp_limit2, skin)
         return pos, vel, energy
 
     def run(pos, vel, box, gvals, data, n_steps):

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argument types (all return a cudaError_t as int)
 _SIGNATURES = {
-    "nbs_pair_column": [_P] * 10 + [_I] * 10 + [_F] * 10 + [_I, _P],
+    "nbs_pair_column": [_P] * 10 + [_I] * 12 + [_F] * 10 + [_I, _P],
     "nbs_pair_cell": [_P] * 10 + [_I] * 13 + [_F] * 10 + [_I, _P],
     "nbs_pair_launch_shape": [_I] * 5 + [_P],
     "nbs_pme_spread": [_P] * 5 + [_I] * 12 + [_P],

@@ -124,6 +124,39 @@ def test_pair_kernel_matches_plain(cuda, mode, energies):
     assert torch.equal(f_k, f_k2)
 
 
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_pair_column_ranges_equal_whole_grid(cuda, case, parts):
+    """pair_column launched over ``parts`` ranges of home cells (as the slab
+    step of that many ranks launches it, K4): each range against the plain
+    twin over it, the outputs concatenated equal to the whole-grid launch
+    to the bit, forces and moment panels, each launch counted."""
+    arrays = pair_case_arrays(case)
+    args = pair_case_slots(arrays, False, cuda, torch.float32)["args"]
+    cfg, n = arrays["cfg"], arrays["charge"].shape[0]
+    key = "pair_column" + ("_ljpme" if cfg.ljpme else "") + "_energies"
+    f_all, m_all = cuda_direct.pair_column(*args, True, n)
+    per = -(-cfg.n_cells // parts)
+    ranges = [(lo, min(per, cfg.n_cells - lo))
+              for lo in range(0, cfg.n_cells, per)]
+    before = cuda_direct.LAUNCHES[key]
+    outs = [cuda_direct.pair_column(*args, True, n, cells=c) for c in ranges]
+    torch.cuda.synchronize()
+    assert cuda_direct.LAUNCHES[key] == before + len(outs)
+    assert torch.equal(torch.cat([o[0] for o in outs]), f_all)
+    assert torch.equal(torch.cat([o[1] for o in outs]), m_all)
+    for c, (f_k, m_k) in zip(ranges, outs):
+        f_p, m_p = cuda_direct.pair_column_plain(*args, True, n, cells=c)
+        assert float((f_k - f_p).abs().max()) <= 2e-5 * (
+            float(f_p.abs().max()) + 1.0)
+        mk, mp = m_k.double().sum(0), m_p.double().sum(0)
+        assert float((mk - mp).abs().max()) <= 1e-5 * (
+            float(mp.abs().max()) + 1.0)
+    f_only = cuda_direct.pair_column(*args, False, n, cells=ranges[-1])[0]
+    assert torch.equal(f_only, cuda_direct.pair_column(*args, False, n)[0][
+        ranges[-1][0]:])
+
+
 def _solute(n_mol=1000):
     """The lattice of ``_water`` with port_systems.py's 12-site chain carved
     into its centre: its exclusions are not water triangles, so the fused

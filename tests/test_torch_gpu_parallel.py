@@ -97,3 +97,85 @@ def test_sharded_compute_two_ranks_on_one_card(cuda, tmp_path):
     d, d1 = (tengine.parameter_derivatives(x, plan.deriv_mask)
              for x in (e, e1))
     assert float(((d - d1).abs() / d1.abs().clamp(min=1.0)).max()) <= 1e-6
+
+
+# nm after 20 steps of 2 fs between two runs of the same step whose
+# forces differ by float32 rounding (the atom-range PME's grids summed in
+# another order, D10: within 1e-5 of max|F| ~ 4e3 kJ/mol/nm, phase 14's
+# gate, which move an atom of 1 amu by at most sum_k k dt^2 dF / m = 210 *
+# 4e-6 * 0.04 = 3.4e-5 nm), and whose float32 constraint solves round
+# inputs an ulp apart up to 8 ulps apart (1.9e-6 nm below 4 nm), each
+# carried into every later step by the velocity: 210 * 1.9e-6 = 4.0e-4 nm
+# (chip_smoke.py's TOL_SLAB_MD says more)
+TOL_SLAB_MD = 4.3e-4
+# steps a window: the JAX heuristic (8 nm/ps) gives 5 at this cube's 0.171
+# nm skin, within which a hydrogen at 300 K can cover skin/2 (0.0868 nm
+# was seen): the guard raises, correctly; 3 keeps it well inside
+SLAB_K = 3
+
+
+def _slab_cube(edge=3.3):
+    """A cut of the benchmark's water at its density, 3 cells of cutoff +
+    0.1 nm a axis, with SETTLE's triangles as constraints: (plan, positions,
+    velocities, masses, constraints)."""
+    from port_systems import (STATE_FILE, WATER_MASSES, build_system,
+                              water_cube, water_system)
+    blob = np.load(STATE_FILE)
+    pos, vel, box = water_cube(blob["positions"], blob["velocities"],
+                               build_system(nbt)[2], edge)
+    system, force, constraints = water_system(nbt, len(pos) // 3, box)
+    masses = np.tile(WATER_MASSES, len(pos) // 3)
+    return (tplan.build_plan(force, system), pos, vel, masses,
+            tuple(np.asarray(c) for c in constraints))
+
+
+def test_slab_step_two_ranks_on_one_card(cuda, tmp_path):
+    """make_sharded_md_step in two ranks on this card over gloo (eager
+    windows): every rank the same state to the bit, pair_column launched
+    over each rank's slab once a step and once for the energies, the
+    positions after 20 steps within TOL_SLAB_MD of the same step in a
+    1-rank group (the whole grid on one rank), and the energy of the
+    starting state within 1e-6 of its (phase 14's gate: the same
+    positions, the grids summed in another order)."""
+    plan, pos, vel, masses, cons = _slab_cube()
+    kw = dict(plan=plan, positions=pos, velocities=vel, masses=masses,
+              constraints=cons, n_steps=20, reuse_steps=SLAB_K)
+    ranks = torch_parallel_cases.run_ranks(
+        2, str(tmp_path), [("slab", "torch_parallel_cases:slab_card", kw),
+                           ("alone", "torch_parallel_cases:slab_card",
+                            dict(kw, alone=True))],
+        backend="gloo", devices=[str(cuda)] * 2)
+    a, b = ranks[0]["slab"], ranks[1]["slab"]
+    assert np.array_equal(a["pos"], b["pos"])
+    assert np.array_equal(a["vel"], b["vel"]) and a["energy"] == b["energy"]
+    config = a["config"]
+    assert config["graph"] is False and config["pair"] == "pair_column"
+    assert config["counts"] == (3, 3, 3) and config["devices"] == 2
+    for r in ranks:
+        assert r["slab"]["launches"] == {"pair_column": 20,
+                                         "pair_column_energies": 1}
+        assert r["alone"]["config"]["devices"] == 1
+    one = ranks[0]["alone"]
+    assert np.abs(a["pos"] - one["pos"]).max() <= TOL_SLAB_MD
+    assert abs(a["energy_start"] - one["energy_start"]) <= 1e-6 * abs(
+        one["energy_start"])
+
+
+def test_slab_step_nccl_graphed(cuda, tmp_path):
+    """One rank over NCCL: the windows replay CUDA graphs with the force
+    all_reduce captured; two windows of the graph against two of the
+    eager body from the same state within TOL_SLAB_MD (the atom-range
+    PME's index_add_ adds in another order in each), no capture after
+    the warm-up."""
+    plan, pos, vel, masses, cons = _slab_cube()
+    ranks = torch_parallel_cases.run_ranks(
+        1, str(tmp_path), [("slab", "torch_parallel_cases:slab_card",
+                            dict(plan=plan, positions=pos, velocities=vel,
+                                 masses=masses, constraints=cons,
+                                 n_steps=20, reuse_steps=SLAB_K))],
+        backend="nccl", devices=[str(cuda)])
+    out = ranks[0]["slab"]
+    assert out["config"]["graph"] is True
+    g = out["graph"]
+    assert g["captures"][0] >= 1 and g["captures"][1] == g["captures"][0]
+    assert np.abs(g["pos"][0] - g["pos"][1]).max() <= TOL_SLAB_MD

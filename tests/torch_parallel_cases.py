@@ -31,7 +31,7 @@ import torch.distributed as dist
 import nonbondedslicing_tpu_torch as nbt
 from nonbondedslicing_tpu_torch.ops import engine as tengine
 from nonbondedslicing_tpu_torch.ops import plan as tplan
-from nonbondedslicing_tpu_torch.parallel import mesh, pme_shard
+from nonbondedslicing_tpu_torch.parallel import collectives, mesh, pme_shard
 
 RANK_TIMEOUT = 120.0      # s, the whole spawn
 
@@ -244,3 +244,222 @@ def sharded_plan(group, device, plan, positions):
                                   shard=group)
     return (compute.route, e.cpu().numpy(), f.cpu().numpy(),
             direct(*args)[1].cpu().numpy())
+
+
+def water_system(api, n_mol=40, box=3.2, seed=9, nsub=3, method="PME",
+                 offsets=False, periodic=False):
+    """tests/test_parallel.py::_water_system through ``api``: 40 rigid
+    3-site waters on a lattice of a 3.2 nm box (120 atoms), cutoff 0.9 nm,
+    triangle exclusions and constraints, one scaling parameter ``lam``
+    (0.8) of slice (0, 1); with ``offsets`` two more globals ``qscale``
+    (0.6) and ``xscale`` (0.25) carrying charge/epsilon offsets of every
+    fifth oxygen and an exception offset; with ``periodic`` the exceptions
+    use periodic boundary conditions.  Returns (system, force,
+    positions)."""
+    rng = np.random.default_rng(seed)
+    sys_ = api.System()
+    sys_.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0), (0, 0, box))
+    force = api.SlicedNonbondedForce(nsub)
+    force.setNonbondedMethod(getattr(api.SlicedNonbondedForce, method))
+    force.setCutoffDistance(0.9)
+    grid = int(np.ceil(n_mol ** (1 / 3)))
+    sites = np.stack(np.meshgrid(*[np.arange(grid)] * 3,
+                                 indexing="ij"), -1).reshape(-1, 3)
+    sites = (sites[:n_mol] + 0.5) * (box / grid)
+    positions = np.empty((3 * n_mol, 3))
+    d_oh, d_hh = 0.09572, 0.15139
+    for m in range(n_mol):
+        sys_.addParticle(15.999)
+        sys_.addParticle(1.008)
+        sys_.addParticle(1.008)
+        force.addParticle(-0.834, 0.3151, 0.6364)
+        force.addParticle(0.417, 0.04, 0.192)
+        force.addParticle(0.417, 0.04, 0.192)
+        o = 3 * m
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        perp = np.cross(axis, rng.normal(size=3))
+        perp /= np.linalg.norm(perp)
+        half = d_hh / 2
+        h = np.sqrt(d_oh ** 2 - half ** 2)
+        positions[o] = sites[m]
+        positions[o + 1] = sites[m] + h * axis + half * perp
+        positions[o + 2] = sites[m] + h * axis - half * perp
+        for a, b in ((0, 1), (0, 2), (1, 2)):
+            force.addException(o + a, o + b, 0.0, 1.0, 0.0)
+        for a in range(3):
+            force.setParticleSubset(o + a, (m + a) % nsub)
+        sys_.addConstraint(o, o + 1, d_oh)
+        sys_.addConstraint(o, o + 2, d_oh)
+        sys_.addConstraint(o + 1, o + 2, d_hh)
+    force.addGlobalParameter("lam", 0.8)
+    force.addScalingParameter("lam", 0, 1, True, True)
+    if offsets:
+        force.addGlobalParameter("qscale", 0.6)
+        force.addGlobalParameter("xscale", 0.25)
+        for m in range(0, n_mol, 5):
+            force.addParticleParameterOffset("qscale", 3 * m, 0.05, 0.0, 0.1)
+        force.addExceptionParameterOffset("xscale", 0, 0.02, 0.0, 0.03)
+    force.setExceptionsUsePeriodicBoundaryConditions(periodic)
+    sys_.addForce(force)
+    return sys_, force, positions
+
+
+def water_md_inputs(method, offsets=False, device="cpu",
+                    dtype=torch.float64, periodic=False):
+    """(plan, masses, constraint clusters, positions, box, data) of
+    :func:`water_system` on ``device`` in ``dtype``."""
+    from nonbondedslicing_tpu_torch.runtime.constraints import \
+        cluster_constraints
+    sys_, force, positions = water_system(nbt, method=method, offsets=offsets,
+                                          periodic=periodic)
+    plan = tplan.build_plan(force, sys_)
+    n = plan.num_particles
+    masses = np.array([sys_.getParticleMass(i) for i in range(n)])
+    cons = cluster_constraints(
+        [sys_.getConstraintParameters(i)
+         for i in range(sys_.getNumConstraints())], n)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+    return (plan, masses, cons, t(positions), t(plan.box0),
+            tengine.plan_data(plan, device=device, dtype=dtype))
+
+
+def slab_md(group, device, method, gvals, vel_seed, n_steps, offsets=False,
+            zeroed=None, periodic=False, reuse_steps=2, cell_capacity=32,
+            dtype="float64"):
+    """``fused_shard.make_sharded_md_step`` on :func:`water_system` with its
+    constraints, ``n_steps`` steps of 1 fs from velocities of 0.3 nm/ps
+    made from ``vel_seed``: (positions, velocities, energy, run.config,
+    the rank's slab range, the pair kernel's calls on this rank) and, with
+    ``zeroed`` globals, the energy of the same run under them; with
+    ``periodic``, the exceptions periodic (the pair_cell path)."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
+    from nonbondedslicing_tpu_torch.parallel import fused_shard
+    dt = _dtype(dtype)
+    plan, masses, cons, pos, box, data = water_md_inputs(
+        method, offsets, device, dt, periodic)
+    vel = torch.as_tensor(np.random.default_rng(vel_seed).normal(
+        scale=0.3, size=tuple(pos.shape)), device=device).to(dt)
+    calls = []
+    counted = {}
+    for name in ("pair_column", "pair_cell"):
+        real = getattr(cuda_direct, name)
+
+        def wrapper(*args, _real=real, **kw):
+            calls.append(kw.get("cells"))
+            return _real(*args, **kw)
+
+        counted[name] = real
+        setattr(cuda_direct, name, wrapper)
+    try:
+        run = fused_shard.make_sharded_md_step(
+            plan, masses, 0.001, group, dtype=dt, constraints=cons,
+            reuse_steps=reuse_steps, cell_capacity=cell_capacity)
+    finally:
+        for name, real in counted.items():
+            setattr(cuda_direct, name, real)
+    p, v, e = run(pos, vel, box, torch.as_tensor(gvals, dtype=dt), data,
+                  n_steps)
+    ncx, ncy, ncz = run.config["counts"]
+    out = dict(pos=p.cpu().numpy(), vel=v.cpu().numpy(), energy=float(e),
+               config=run.config, calls=calls,
+               slab=collectives.share(ncx * ncy * ncz, group,
+                                      quantum=ncy * ncz))
+    if zeroed is not None:
+        out["energy_zeroed"] = float(run(
+            pos, vel, box, torch.as_tensor(zeroed, dtype=dt), data,
+            n_steps)[2])
+    return out
+
+
+def slab_guards(group, device):
+    """The guards of ``make_sharded_md_step`` on :func:`water_system`
+    (PME, float64, no constraints): the messages raised by a run at 4 slots
+    a cell (overflow) and by a run whose first atom moves 0.1 nm a step
+    (more than half the 0.167 nm skin within one window of 2 steps)."""
+    from nonbondedslicing_tpu_torch.parallel import fused_shard
+    plan, masses, _, pos, box, data = water_md_inputs("PME")
+    gvals = torch.as_tensor(plan.global_defaults)
+    out = {}
+    for name, capacity, speed in (("overflow", 4, 0.0), ("skin", 32, 100.0)):
+        run = fused_shard.make_sharded_md_step(
+            plan, masses, 0.001, group, dtype=torch.float64,
+            reuse_steps=2, cell_capacity=capacity)
+        vel = torch.zeros_like(pos)
+        vel[0, 0] = speed
+        try:
+            run(pos, vel, box, gvals, data, 2)
+            out[name] = None
+        except nbt.OpenMMException as exc:
+            out[name] = str(exc)
+    return out
+
+
+def slab_one_rank(group, device):
+    """Each rank builds ``make_sharded_md_step`` in a group of its own (a
+    1-rank gloo group) and runs 5 steps of PME as :func:`slab_md`; the
+    refusal of a box too small for a cell grid is raised there too.
+    Returns (the run's output, the refusal's message)."""
+    rank, size = collectives.rank_and_size(group)
+    mine = [dist.new_group([r], backend="gloo") for r in range(size)][rank]
+    out = slab_md(mine, device, "PME", [0.8], 4, 5)
+    from nonbondedslicing_tpu_torch.parallel import fused_shard
+    sys_, force, _ = system(nbt, "PME", box=2.4)
+    try:
+        fused_shard.make_sharded_md_step(tplan.build_plan(force, sys_),
+                                         np.ones(64), 0.001, mine)
+        refusal = None
+    except nbt.OpenMMException as exc:
+        refusal = str(exc)
+    return out, refusal
+
+
+def slab_card(group, device, plan, positions, velocities, masses,
+              constraints, n_steps, dt=0.002, reuse_steps=None,
+              cell_capacity=None, alone=False):
+    """``make_sharded_md_step`` in float32 on ``device`` from the given
+    state (with ``alone``, in a 1-rank gloo group of this rank's own):
+    ``n_steps`` steps counted (the pair kernels' launches of the run),
+    the energy at the starting state, then, where the windows are graphed, two windows of the graph against
+    two of the eager body from the state reached and one more run (no
+    capture may follow the first).  Returns numpy arrays and numbers."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
+    from nonbondedslicing_tpu_torch.parallel import fused_shard
+    if alone:
+        rank, size = collectives.rank_and_size(group)
+        group = [dist.new_group([r], backend="gloo")
+                 for r in range(size)][rank]
+    f32 = torch.float32
+    run = fused_shard.make_sharded_md_step(
+        plan, masses, dt, group, dtype=f32, constraints=constraints,
+        reuse_steps=reuse_steps, cell_capacity=cell_capacity)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device).to(f32)
+
+    box, gvals = t(plan.box0), t(plan.global_defaults)
+    data = tengine.plan_data(plan, device=device, dtype=f32)
+    before = dict(cuda_direct.LAUNCHES)
+    p, v, e = run(t(positions), t(velocities), box, gvals, data, n_steps)
+    torch.cuda.synchronize()
+    out = dict(pos=p.cpu().numpy(), vel=v.cpu().numpy(), energy=float(e),
+               config=run.config,
+               launches={k: n - before[k]
+                         for k, n in cuda_direct.LAUNCHES.items()
+                         if n != before[k]})
+    # the energy at the starting state (a run of no steps)
+    out["energy_start"] = float(run(t(positions), t(velocities), box, gvals,
+                                    data, 0)[2])
+    if run.config["graph"]:
+        K = run.config["reuse_steps"]
+        captures = run.stats["captures"]
+        graphed = run(p, v, box, gvals, data, 2 * K)
+        eager = run.eager(p, v, box, gvals, data, 2 * K)
+        run(p, v, box, gvals, data, 2 * K)
+        out["graph"] = dict(
+            pos=[x[0].cpu().numpy() for x in (graphed, eager)],
+            captures=(captures, run.stats["captures"]))
+    return out

@@ -78,8 +78,8 @@ the last line:
    without the graph): from the state of one captured window, two windows
    of K steps each way, the same kernel launches counted; on the rigid box
    (under PME, under LJPME and through pme_pipeline="grid") and on the
-   solute box positions and velocities equal to the bit and the energy
-   within 1e-12 relative; then 200-step chunks of both timed in turns;
+   solute box positions, velocities and the energy equal to the bit;
+   then 200-step chunks of both timed in turns;
 10. mixed precision (float64 positions) on the benchmark box: one warm-up
    chunk and three timed chunks with phase 5's checks; then the NVE pair,
    single and mixed, each 20 chunks of 100 steps from the benchmark state,
@@ -114,9 +114,9 @@ the last line:
    updateParametersInContext (a charge) keep the graph and the data
    tensors, the next 200 steps equal to the bit those of a Context built
    with the new parameters from the same state, and the energy and
-   dE/dlambda equal to its own to 1e-6 (the atom-space PME's float
-   atomics); (b) the solute box through a Context (HarmonicBondForce,
-   water constraints) with phase 6's gates; (c) getState on both boxes,
+   dE/dlambda equal to its own to the bit; (b) the solute box through a
+   Context (HarmonicBondForce, water constraints) with phase 6's gates;
+   (c) getState on both boxes,
    float32 (K3 on the kernel route) against Precision double on the card
    with phase 4's gates (atoms with a pair within 1e-6 nm of the cutoff
    held to the force jump there), and with the reciprocal part in its own
@@ -133,7 +133,10 @@ the last line:
    100 steps with the velocities rescaled to 300 K by each chunk's mean
    temperature (the cut's faces relax), then 200 timed steps and 200
    sampled every 25 steps, with phase 5's gates (the temperature the mean
-   of the samples), and the evaluation against float64;
+   of the samples), and the evaluation against float64; then its graph
+   against its eager body over two windows of 25 steps, in float64 and in
+   float32: positions, velocities and energy equal to the bit (the
+   atom-space PME spreads in int64 fixed point);
 13. the constrained solute, the native library, the example: (a) the
    solute box with its chain's eleven 1-2 pairs as constraints
    (port_systems.chain_constraints: one 11-wide cluster, every water
@@ -163,9 +166,10 @@ the last line:
    card alone in float32 and float64.  (a) Two ranks on this card over
    gloo (CUDA tensors): each rank's call launches its pair_cell once
    (counted), every rank returns the same result to the bit, the
-   direct-space forces equal the single card's to the bit, the total
-   forces within 1e-5 of max|F| of its (the atom-space PME adds the ranks'
-   grids in another order), energy and dE/dlambda within 1e-6 relative,
+   direct-space forces equal the single card's to the bit, and so do the
+   int64 PME grids after the all_reduce (every one of a call's, against
+   the single card's spread), the total forces TOL_SHARD_FORCE, energy and
+   dE/dlambda within 1e-6 relative (the ranks' float partial sums),
    and against float64 phase 4's gates (phase 11's cutoff exception); ms a
    call of both, the bytes of each all_reduce; (c) in the same two ranks,
    make_multichip_md_step on phase 12's 1,596-atom water cube (all-pairs
@@ -191,7 +195,8 @@ the last line:
    time beside the whole grid's in turns, with the range's bound.  (a) Two
    ranks on this card over gloo (eager windows): every rank ends with the
    same positions, velocities and energy to the bit; one warm-up chunk and
-   three timed chunks of 200 steps with phase 5's gates (and the chain's
+   one timed chunk of 200 steps (three over NCCL, (b)) with phase 5's
+   gates (and the chain's
    distances); the energy at the state reached against CPU float64 (phase
    4's energy gate: the run returns the energy alone); 10 steps from the
    starting state against the single
@@ -207,10 +212,21 @@ the last line:
    One rank per card over NCCL (four on a four-card machine, where the
    last rank of the (6, 6, 6) grid owns no cell) with (a)'s gates; its
    windows replay CUDA graphs with the force all_reduce captured: two
-   windows of the graph against two of the eager body within
-   TOL_SLAB_GRAPH, and no capture after the warm-up chunk.
+   windows of the graph against two of the eager body, positions,
+   velocities and energy equal to the bit, and no capture after the
+   warm-up chunk.
    ``python3 chip_smoke.py --sharded`` runs phases 1, 2, 14 and 15 only
-   (the call to make on several cards).
+   (the call to make on several cards);
+16. bitwise repeatability (the card's counterpart of the JAX package's
+   ``tests/test_two_forces.py::test_deterministic_forces`` and
+   ``tests/test_pme_paths.py::test_deterministic_forces``): the rigid and
+   the solute box under PME and LJPME through ``nbt.Context`` on
+   ``CUDA`` (float32) and ``Reference`` (float64), getState twice with
+   setPositions between: forces, energy and dE/dlambda equal to the bit;
+   then ``ops/pme.pme_reciprocal`` of the rigid box (charges and, under
+   LJPME, C6) on the atoms and on the atoms permuted, in float32 and
+   float64: slice energies equal to the bit, forces permuted to the bit.
+   It prints how many evaluations it compared.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -306,10 +322,8 @@ TOL_EVAL_ENERGY = 1e-5    # relative total energy, card f32 vs CPU f64
 TOL_EVAL_FORCE = 5e-5     # of max|F|, card f32 vs CPU f64
 TOL_EVAL_DERIV = 1e-5     # relative dE/dlambda
 TOL_CONSTRAINT = 1e-5     # nm
-TOL_GRAPH_ENERGY = 1e-12  # relative, graph vs eager (the exclusion rows'
-                          # float64 index_add_ may reorder)
 TOL_SPLIT = 1e-6          # generic engine: direct + reciprocal vs one call
-                          # (f32 sums in another order; PME's index_add_)
+                          # (f32 sums of the parts in another order)
 GENERIC_METHODS = ("CutoffPeriodic", "Ewald", "PME", "LJPME")
 CLUSTER_NM = 1.5          # the non-periodic drop: waters this near the chain
 # the drop's dE/dlambda (phase 11) sums some 30,000 chain-water pair
@@ -324,10 +338,19 @@ GENERIC_REPS = 5          # timed make_compute calls per method
 SHARD_TIMEOUT = 240.0     # s, phase 14: a spawn of ranks, start to end
 SHARD_MD_STEPS = 10       # phase 14 (c): make_multichip_md_step
 SHARD_MD_DT = 0.001       # ps
-TOL_SHARD_FORCE = 1e-5    # of max|F|, sharded against the single card, f32
+TOL_SHARD_FORCE = 1e-5    # of max|F|, sharded against the single card,
+                          # f32: the int64 grids and the direct-space
+                          # forces are equal to the bit; a rank
+                          # interpolates its share of the atoms, whose
+                          # batched products (torch.einsum) round in the
+                          # last bit against the whole array's (4e-8-8e-8
+                          # of max|F| on 2 gloo ranks on one H100 and on 4
+                          # NCCL ranks, an H100 each)
 TOL_SHARD_ENERGY = 1e-6   # relative energy and dE/dlambda, the same
 TOL_SHARD_MD = 1e-9       # nm, phase 14 (c) in float64
 SLAB_TIMED_CHUNKS = 3     # phase 15: timed chunks after a warm-up chunk
+SLAB_GLOO_TIMED_CHUNKS = 1   # phase 15 (a): gloo's eager windows move the
+                             # int64 grid through the host (28-64 ms/step)
 SLAB_CHECK_STEPS = 10     # phase 15: steps against the single card's
 # phase 15: the positions of the slab step after SLAB_CHECK_STEPS (n = 10)
 # steps of 2 fs against the single card's make_md_step are held to
@@ -346,11 +369,6 @@ SLAB_CHECK_STEPS = 10     # phase 15: steps against the single card's
 # later step: sum_j (n - j + 1) = 55 of them, 2.1e-4 nm.
 SLAB_ROUNDING_NM = 55 * 3.8e-6
 SLAB_ROUNDING_FORCE = 1e-5 * 3e3       # kJ/mol/nm
-# nm, phase 15 (b): two windows (2K = 6 steps at K = 3) of the graph
-# against the eager body, whose atom-range PME adds with float atomics in
-# another order (one grid, so only the rounding terms): 21 * (4e-6 * 0.03
-# / 1.008 + 3.8e-6) = 8.3e-5
-TOL_SLAB_GRAPH = 8.3e-5
 CONTEXT_TIMED_CHUNKS = 3  # phase 12: step() chunks after a warm-up chunk
 CONTEXT_ALTERNATED_CHUNKS = 8   # phase 12 (a): timed chunks of the Context
                                 # and of make_md_step, in turns
@@ -1351,11 +1369,11 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
                         data, reset_launches, card):
     """Two windows of K steps replayed from make_md_step's CUDA graph
     against the same windows through its eager body (``run.eager``), from
-    the state one captured window reaches: positions and velocities equal
-    to the bit, the energy within 1e-12 relative (TOL_GRAPH_ENERGY), the
-    same kernel launches counted; then CHUNK_STEPS-step chunks timed in
-    turns graph, eager, eager, graph.  Returns the run, the state after
-    the timed chunks and their ms/step ({"graph": [..], "eager": [..]})."""
+    the state one captured window reaches: positions, velocities and the
+    energy equal to the bit, the same kernel launches counted; then
+    CHUNK_STEPS-step chunks timed in turns graph, eager, eager, graph.
+    Returns the run, the state after the timed chunks and their ms/step
+    ({"graph": [..], "eager": [..]})."""
     import torch
     from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     run = make_run(capacity, None)
@@ -1380,15 +1398,12 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
     (p_g, v_g, e_g), (p_e, v_e, e_e) = out["graph"], out["eager"]
     dp = float((p_g - p_e).abs().max())
     dv = float((v_g - v_e).abs().max())
-    rel_e = abs(float(e_g) - float(e_e)) / abs(float(e_e))
     print(f"{label}: {2 * K} steps, graph against eager: max|dx| {dp:.3e} "
-          f"nm, max|dv| {dv:.3e} nm/ps, energy {float(e_g):.6f} against "
-          f"{float(e_e):.6f} kJ/mol")
-    check(torch.equal(p_g, p_e) and torch.equal(v_g, v_e),
-          f"{label}: positions and velocities equal to the bit")
-    check(rel_e <= TOL_GRAPH_ENERGY,
-          f"{label}: relative energy difference {rel_e:.3e} <= "
-          f"{TOL_GRAPH_ENERGY}")
+          f"nm, max|dv| {dv:.3e} nm/ps, energy {float(e_g)!r} against "
+          f"{float(e_e)!r} kJ/mol")
+    check(torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+          and float(e_g) == float(e_e),
+          f"{label}: positions, velocities and energy equal to the bit")
     ms = {"graph": [], "eager": []}
     for name in ("graph", "eager", "eager", "graph"):
         fn = run if name == "graph" else run.eager
@@ -2109,18 +2124,15 @@ def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
           f"state (K {r_run.config['reuse_steps']}, capacity "
           f"{r_run.config['capacity']})")
     st_a, st_b = full_state(ctx), full_state(rebuilt)
-    rel_e = abs(st_a.getPotentialEnergy() - st_b.getPotentialEnergy()) / abs(
-        st_b.getPotentialEnergy())
     d_a = st_a.getEnergyParameterDerivatives()
     d_b = st_b.getEnergyParameterDerivatives()
-    rel_d = max(abs(d_a[k] - d_b[k]) / max(abs(d_b[k]), 1.0) for k in d_b)
-    print(f"parameters: E {st_a.getPotentialEnergy():.6f} against the "
-          f"rebuilt Context's {st_b.getPotentialEnergy():.6f} kJ/mol, "
+    print(f"parameters: E {st_a.getPotentialEnergy()!r} against the "
+          f"rebuilt Context's {st_b.getPotentialEnergy()!r} kJ/mol, "
           f"dE/dlambda {d_a} against {d_b}")
-    check(rel_e <= TOL_SPLIT and rel_d <= TOL_SPLIT,
-          f"parameters: energy {rel_e:.3e} and dE/dlambda {rel_d:.3e} from "
-          f"the rebuilt Context's <= {TOL_SPLIT} (the float atomics of the "
-          f"atom-space PME spread)")
+    check(st_a.getPotentialEnergy() == st_b.getPotentialEnergy()
+          and d_a == d_b,
+          "parameters: energy and dE/dlambda equal to the rebuilt "
+          "Context's to the bit")
 
     # ---- (b) the solute box through the Context
     (s_system, s_force, s_pos_np, s_masses, s_constraints, s_bonds,
@@ -2289,6 +2301,27 @@ def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
     state_gates("getState cube", full_state(c_ctx),
                 full_state(context(c_system, reference, p.numpy())),
                 skip, jump)
+    # its graph against its eager body, two windows from the state reached
+    for dtype in (torch.float64, f32):
+        run = make_md_step(c_plan, c_masses, dt=DT_PS, dtype=dtype,
+                           constraints=c_constraints)
+        args = (torch.as_tensor(np.diag([c_edge] * 3), device=dev).to(dtype),
+                torch.ones(2, device=dev, dtype=dtype),
+                engine_mod.plan_data(c_plan, device=dev, dtype=dtype))
+        p_w, v_w, _ = run(p.to(dev, dtype), v.to(dev, dtype), *args,
+                          SIMPLE_WINDOW)
+        (p_g, v_g, e_g), (p_e, v_e, e_e) = (
+            fn(p_w, v_w, *args, 2 * SIMPLE_WINDOW)
+            for fn in (run, run.eager))
+        print(f"cube graph {dtype}: {2 * SIMPLE_WINDOW} steps, graph against "
+              f"eager: max|dx| {float((p_g - p_e).abs().max()):.3e} nm, "
+              f"energy {float(e_g)!r} against {float(e_e)!r} kJ/mol "
+              f"({run.stats})")
+        check(run.stats["captures"] == 1 and run.stats["replays"] == 2
+              and torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+              and float(e_g) == float(e_e),
+              f"cube graph {dtype}: two replayed windows, positions, "
+              f"velocities and energy equal to the eager body's to the bit")
 
 
 def chain_constraint_error(p):
@@ -2522,7 +2555,8 @@ def sharded_rank(group, device, configs, md):
     positions) through ``make_sharded_compute`` in float32 once, with the
     kernels' launches of that call counted (the counts are set to 0 just
     before); then, not counted, its direct space alone, the collectives of
-    one call (shape, dtype, bytes of each all_reduce) and its ms a call;
+    one call (shape, dtype, bytes of each all_reduce; the int64 PME grids
+    as the all_reduce left them) and its ms a call;
     with ``md`` (plan, positions, velocities, masses, steps, dt) the
     harness ``make_multichip_md_step`` in float64.  Returns numpy arrays
     and numbers."""
@@ -2552,13 +2586,16 @@ def sharded_rank(group, device, configs, md):
         direct = engine_mod.make_compute(plan, True, False,
                                          neighbor=compute.route, shard=group)
         out[label]["f_direct"] = direct(*args)[1].cpu().numpy()
-        reduced = []
+        reduced, grids = [], []
         real = collectives.all_reduce
 
         def counted(tensor, g):
             reduced.append((tuple(tensor.shape), str(tensor.dtype),
                             tensor.numel() * tensor.element_size()))
-            return real(tensor, g)
+            real(tensor, g)
+            if tensor.dtype == torch.int64:
+                grids.append(tensor.cpu().numpy())
+            return tensor
 
         collectives.all_reduce = counted
         try:
@@ -2566,6 +2603,7 @@ def sharded_rank(group, device, configs, md):
         finally:
             collectives.all_reduce = real
         out[label]["all_reduce"] = reduced
+        out[label]["grids"] = grids
         out[label]["ms"] = call_ms(lambda: compute(*args))
     if md is not None:
         plan, p_np, v_np, masses, steps, dt = md
@@ -2586,13 +2624,14 @@ def sharded_rank(group, device, configs, md):
     return out
 
 
-def shard_gates(label, plan, found, single):
+def shard_gates(label, plan, found, single, grids1):
     """A sharded float32 evaluation ``found`` (a rank's results) against the
     single-card one ``single`` (slice energies, forces, direct-space
-    forces) on the same inputs: direct-space forces equal to the bit, total
-    forces within TOL_SHARD_FORCE of max|F| (the atom-space PME adds the
-    ranks' grids in another order, D4, D10), the energy and every dE/dlambda
-    within TOL_SHARD_ENERGY relative (denominator at least 1 kJ/mol)."""
+    forces) on the same inputs, whose int64 PME grids were ``grids1``:
+    direct-space forces and the PME grids after the all_reduce equal to the
+    bit, total forces within TOL_SHARD_FORCE of max|F|, the energy and
+    every dE/dlambda within TOL_SHARD_ENERGY relative (denominator at least
+    1 kJ/mol; the ranks' float partial sums, D10)."""
     import torch
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops.params import slice_lambdas
@@ -2601,8 +2640,15 @@ def shard_gates(label, plan, found, single):
     check(torch.equal(torch.as_tensor(found["f_direct"]), fd1),
           f"{label}: direct-space forces equal to the single card's to the "
           f"bit")
+    check(len(found["grids"]) == len(grids1) and all(
+        np.array_equal(a, b) for a, b in zip(found["grids"], grids1)),
+          f"{label}: the {len(grids1)} int64 PME grids of a call "
+          f"({[a.shape for a in grids1]}), summed over the ranks, equal the "
+          f"single card's to the bit")
     fmax = float(f1.abs().max())
     f_err = float((f - f1).abs().max()) / fmax
+    print(f"{label}: equal to the single card's to the bit: total forces "
+          f"{torch.equal(f, f1)}, slice energies {torch.equal(e, e1)}")
     check(f_err <= TOL_SHARD_FORCE,
           f"{label}: forces {f_err:.3e} of max|F| {fmax:.1f} from the single "
           f"card's <= {TOL_SHARD_FORCE}")
@@ -2632,6 +2678,7 @@ def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
     from nonbondedslicing_tpu_torch.ops import plan as plan_mod
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_parallel_cases
+    from nonbondedslicing_tpu_torch.ops import pme as pme_mod
     f32, f64 = torch.float32, torch.float64
 
     t0 = time.time()
@@ -2643,12 +2690,24 @@ def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
     out = build_solute_system(nbt, pos_np, box_len)
     configs.append(("solute PME", plan_mod.build_plan(out[1], out[0]),
                     out[2]))
-    # the single card's evaluations of the same inputs, and float64
+    # the single card's evaluations of the same inputs (with the int64
+    # grids they spread), and float64
     single = {}
+    spread_fixed = pme_mod.spread_fixed
     for label, plan, p_np in configs:
         args32 = card_inputs(plan, p_np, f32, dev)
         compute = engine_mod.make_compute(plan, True, True, with_aux=True)
-        e1, f1, aux = compute(*args32)
+        grids1 = []
+
+        def recorded(*a, **kw):
+            grids1.append(spread_fixed(*a, **kw))
+            return grids1[-1]
+
+        pme_mod.spread_fixed = recorded
+        try:
+            e1, f1, aux = compute(*args32)
+        finally:
+            pme_mod.spread_fixed = spread_fixed
         check(compute.route == "pallas" and int(aux["overflow"]) == 0
               and float(aux["excl_span"]) < 1.0,
               f"sharded {label}: the single card's make_compute takes the "
@@ -2658,6 +2717,7 @@ def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
         e64, f64_ = compute(*card_inputs(plan, p_np, f64, dev))[:2]
         single[label] = dict(
             out=(e1, f1, fd1), f64=(e64, f64_), args32=args32,
+            grids=[g.cpu().numpy() for g in grids1],
             pc=generic_pair_config(plan),
             ms=call_ms(lambda: compute(*args32)))
     # the MD harness's system: the per-step rebuild's cube, all pairs
@@ -2689,14 +2749,17 @@ def sharded_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
             found = [r["eval"][label] for r in ranks]
             for r, x in enumerate(found[1:], 1):
                 check(all(np.array_equal(x[k], found[0][k])
-                          for k in ("e", "f", "f_direct")),
+                          for k in ("e", "f", "f_direct"))
+                  and all(np.array_equal(a, b) for a, b in
+                          zip(x["grids"], found[0]["grids"])),
                       f"{tag} {label}: rank {r} returned rank 0's result to "
                       f"the bit")
             check(found[0]["route"] == "pallas",
                   f"{tag} {label}: make_sharded_compute takes the kernel "
                   f"route ({found[0]['route']}) on {world} ranks")
             s = single[label]
-            shard_gates(f"{tag} {label}", plan, found[0], s["out"])
+            shard_gates(f"{tag} {label}", plan, found[0], s["out"],
+                        s["grids"])
             gates_against_f64(f"{tag} {label} against f64", plan, s["pc"],
                               s["args32"],
                               (torch.as_tensor(found[0]["e"], device=dev),
@@ -2893,6 +2956,7 @@ def slab_rank(group, device, configs, timed_chunks):
             g = chunks.run(p, v, box, gvals, data, k2)
             e = chunks.run.eager(p, v, box, gvals, data, k2)
             found["graph"] = dict(pos=[x[0].cpu().numpy() for x in (g, e)],
+                                  vel=[x[1].cpu().numpy() for x in (g, e)],
                                   energy=[float(x[2]) for x in (g, e)],
                                   steps=k2)
         out[label] = found
@@ -3097,11 +3161,18 @@ def slab_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
                 err = float(np.abs(g["pos"][0] - g["pos"][1]).max())
                 rel = abs(g["energy"][0] - g["energy"][1]) / abs(
                     g["energy"][1])
-                check(err <= TOL_SLAB_GRAPH and rel <= TOL_SHARD_ENERGY,
-                      f"{tag} {label}: {g['steps']} steps of the graph "
-                      f"against the eager body, positions {err:.3e} nm <= "
-                      f"{TOL_SLAB_GRAPH}, energy {rel:.3e} relative <= "
-                      f"{TOL_SHARD_ENERGY}")
+                bitwise = (all(np.array_equal(*g[k]) for k in ("pos", "vel"))
+                           and g["energy"][0] == g["energy"][1])
+                print(f"{tag} {label}: {g['steps']} steps of the graph "
+                      f"against the eager body on {world} rank(s): equal to "
+                      f"the bit {bitwise}, positions {err:.3e} nm, energy "
+                      f"{rel:.3e} relative")
+                # the same ranks add their float32 partial forces in the
+                # same order in the graph and eagerly, and the PME grids
+                # are int64 (measured equal on four NCCL ranks, an H100
+                # each)
+                check(bitwise, f"{tag} {label}: the graph equals the eager "
+                      f"body to the bit on {world} rank(s)")
             per_rank = [round(float(np.median(
                 [1e3 * t / CHUNK_STEPS for t in x["chunk_s"][1:]])), 3)
                 for x in found]
@@ -3150,7 +3221,8 @@ def slab_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
     with tempfile.TemporaryDirectory() as tmp:
         ranks = torch_parallel_cases.run_ranks(
             2, tmp, [("slab", "chip_smoke:slab_rank",
-                      dict(configs=configs, timed_chunks=SLAB_TIMED_CHUNKS))],
+                      dict(configs=configs,
+                           timed_chunks=SLAB_GLOO_TIMED_CHUNKS))],
             backend="gloo", devices=[str(dev)] * 2, timeout=SHARD_TIMEOUT)
     print(f"slab (a): 2 ranks over gloo on {dev} in {time.time() - t0:.1f} s")
     counted = gates("slab (a) gloo", ranks)
@@ -3710,9 +3782,91 @@ def main():
     slab_phase(dev, card, results, run_launches, pos_np, vel_np, box_len,
                reps)
     print(f"slab: {time.time() - t0:.1f} s")
+
+    # ---- 16. bitwise repeatability of the evaluations
+    determinism_phase(dev, pos_np, box_len)
     print(f"total: {time.time() - t_start:.1f} s")
     print_last_lines(kind, results, run_launches, ENTRIES)
     return 0
+
+
+def determinism_phase(dev, pos_np, box_len):
+    """Phase 16: bitwise repeatability (see the module docstring)."""
+    import torch
+    import nonbondedslicing_tpu_torch as nbt
+    from nonbondedslicing_tpu_torch.ops import params, pme
+    from nonbondedslicing_tpu_torch.ops import plan as plan_mod
+    from nonbondedslicing_tpu_torch.utils.indexing import slice_subsets
+    t0 = time.time()
+    compared = 0
+    for method in ("PME", "LJPME"):
+        rigid, _, _, _ = build_system(nbt, method)
+        solute, _, s_pos, *_ = build_solute_system(nbt, pos_np, box_len,
+                                                   method=method)
+        for label, system, p in (("rigid", rigid, pos_np),
+                                 ("solute", solute, s_pos)):
+            for platform in ("CUDA", "Reference"):
+                ctx = nbt.Context(system, nbt.VerletIntegrator(DT_PS),
+                                  nbt.Platform.getPlatformByName(platform))
+                states = []
+                for _ in range(2):
+                    ctx.setPositions(p)
+                    states.append(full_state(ctx))
+                a, b = states
+                check(np.array_equal(np.asarray(a.getForces()),
+                                     np.asarray(b.getForces()))
+                      and a.getPotentialEnergy() == b.getPotentialEnergy()
+                      and (a.getEnergyParameterDerivatives()
+                           == b.getEnergyParameterDerivatives()),
+                      f"determinism {label} {method} {platform}: two "
+                      f"getState calls with setPositions between, forces, "
+                      f"energy ({a.getPotentialEnergy()!r} kJ/mol) and "
+                      f"dE/dlambda equal to the bit")
+                compared += 2
+    # the atom-space PME of the rigid box on its atoms in another order
+    for method in ("PME", "LJPME"):
+        system, force, _, _ = build_system(nbt, method)
+        plan = plan_mod.build_plan(force, system)
+        perm = torch.as_tensor(
+            np.random.default_rng(7).permutation(plan.num_particles),
+            device=dev)
+        tables = dict(
+            num_subsets=plan.num_subsets,
+            slice_subset_pairs=torch.as_tensor(
+                slice_subsets(plan.num_subsets), device=dev),
+            slice_table=torch.as_tensor(np.asarray(plan.slice_table),
+                                        dtype=torch.int64, device=dev))
+        for dtype in (torch.float32, torch.float64):
+            pos, box, gvals, data = card_inputs(plan, pos_np, dtype, dev)
+            charge, sig_half, eps2 = params.particle_params(data, gvals)
+            lam = params.slice_lambdas(
+                torch.as_tensor(np.asarray(plan.lam_source), device=dev),
+                gvals)
+            terms = [("charges", charge, lam[:, 0], plan.ewald_alpha,
+                      plan.pme_grid, plan.pme_moduli, False)]
+            if method == "LJPME":
+                terms.append(("C6", 8.0 * sig_half ** 3 * eps2, lam[:, 1],
+                              plan.dispersion_alpha, plan.dispersion_grid,
+                              plan.dpme_moduli, True))
+            subsets = data["subsets"]
+            for name, w, lam_s, alpha, grid, moduli, dispersion in terms:
+                kw = dict(tables, alpha=alpha, grid_shape=grid,
+                          moduli=tuple(torch.as_tensor(np.asarray(m),
+                                                       device=dev)
+                                       for m in moduli),
+                          dispersion=dispersion)
+                e1, f1 = pme.pme_reciprocal(pos, box, w, subsets, lam_s,
+                                            **kw)
+                e2, f2 = pme.pme_reciprocal(pos[perm], box, w[perm],
+                                            subsets[perm], lam_s, **kw)
+                check(torch.equal(e1, e2) and torch.equal(f1[perm], f2),
+                      f"determinism rigid {method} {dtype}: pme_reciprocal "
+                      f"of the {name} on {plan.num_particles} atoms and on "
+                      f"them permuted, slice energies equal and forces "
+                      f"permuted to the bit")
+                compared += 2
+    print(f"determinism: {compared} evaluations compared, each pair equal "
+          f"to the bit, in {time.time() - t0:.1f} s")
 
 
 def print_last_lines(kind, results, run_launches, entries):

@@ -167,7 +167,8 @@ def exclusion_corrections_rows(positions, charge, sig_half, eps2,
     the JAX package's ``bonded.py:154-242``).
 
     pair_slices: (M, 3) int64 slice id per local pair.
-    Returns (slice_energies (S, 2) f64, forces (N, 3)).
+    Returns (slice_energies (S, 2) f64, summed in a fixed order as the
+    1-4s' are, forces (N, 3)).
     """
     n = positions.shape[0]
     m = n // 3
@@ -200,11 +201,6 @@ def exclusion_corrections_rows(positions, charge, sig_half, eps2,
     fb = -f[:, 0] + f[:, 2]
     fc = -f[:, 1] - f[:, 2]
     forces = torch.stack([fa, fb, fc], dim=1).reshape(n, 3)
-    slice_e = torch.zeros((num_slices, 2), dtype=torch.float64,
-                          device=positions.device)
-    slice_e[:, 0].index_add_(0, pair_slices.reshape(-1),
-                             e_c.reshape(-1).to(torch.float64))
-    if ljpme:
-        slice_e[:, 1].index_add_(0, pair_slices.reshape(-1),
-                                 e_v.reshape(-1).to(torch.float64))
-    return slice_e, forces
+    return (_slice_sums(pair_slices.reshape(-1), e_c.reshape(-1),
+                        e_v.reshape(-1) if ljpme else None, num_slices),
+            forces)

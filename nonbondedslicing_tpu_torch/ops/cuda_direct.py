@@ -186,6 +186,21 @@ def _min_image(dx, dy, dz, box):
     return dx, dy, dz
 
 
+def _tree_sum(x, dim):
+    """The sum of ``x`` over ``dim`` in a fixed order: the first half of
+    the axis is added elementwise to the second (an odd length keeps its
+    last entry for the next round) until one entry is left.  Each output
+    adds the same terms in the same order whatever the tensor's other
+    sizes and the thread count, which a library reduction (a batched
+    product, ``Tensor.sum``) does not promise."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        half = x[..., :n // 2] + x[..., n // 2:2 * (n // 2)]
+        x = torch.cat([half, x[..., n - 1:]], -1) if n % 2 else half
+    return x[..., 0]
+
+
 def cell_range(cfg, cells):
     """(begin, end) of the home cells ``cells`` = (begin, count), or of
     the whole grid for None."""
@@ -352,12 +367,15 @@ def _pair_plain(slot_pos, slot_par, slot_sub, slot_ids, slot_excl, lam_c_nn,
             e_x = torch.where(big, -qq * rinvx * erf_x,
                               -cfg.ewald_alpha * (2.0 / SQRT_PI) * qq)
             e_coul = e_coul + torch.where(xmask, e_x, zero)
-        forces = forces + torch.stack([fx.sum(-1), fy.sum(-1), fz.sum(-1)],
-                                      dim=1)
+        forces = forces + _tree_sum(torch.stack([fx, fy, fz], dim=1), -1)
         if energies:
+            # (rows, 2 terms, row atom, subset of the candidate), then the
+            # row atoms by subset: one-hot weights select exactly
             oh_j = torch.nn.functional.one_hot(csub, nsub).to(dtype)
-            for term, e in enumerate((e_coul, e_vdw)):
-                moments[:, term] += oh_i.transpose(1, 2) @ (0.5 * e) @ oh_j
+            half_e = 0.5 * torch.stack([e_coul, e_vdw], dim=1)
+            by_j = _tree_sum(half_e[..., None] * oh_j[:, None, None], -2)
+            moments += _tree_sum(oh_i[:, None, :, :, None]
+                                 * by_j[:, :, :, None, :], 2)
     return forces, moments
 
 

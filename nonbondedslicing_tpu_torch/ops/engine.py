@@ -106,8 +106,9 @@ def make_compute(plan: Plan, include_direct: bool, include_reciprocal: bool,
     summed over the group; the all-pairs direct space, self and plasma
     energies, exclusion corrections, 1-4s and the dispersion correction run
     on every rank (``parallel/mesh.py`` splits the all-pairs rows).  Every
-    rank returns the same result, equal to the unsharded one to rounding
-    (ROADMAP D10).
+    rank returns the same result; the direct-space forces and the summed
+    PME grids (int64) equal the unsharded call's to the bit, the rest
+    equals it to rounding (the ranks' float partial sums, ROADMAP D10).
 
     ``with_aux=True`` adds aux = {"overflow": int32 0-d tensor}, the atoms
     beyond the cell capacity (0 without a cell list), and on the kernel

@@ -7,11 +7,19 @@ ReferencePME.cpp:473-492).  The fused engine's spread and interpolation
 kernels and the FFTs around them live in :mod:`.cuda_pme`.
 
 The generic engine's PME (:func:`pme_reciprocal`, the JAX package's
-``pme.py:874-935``) works on atoms: B-spline stencils spread with
-``index_add_`` (float atomics on CUDA, so its sums are not repeatable to
-the bit there), ``torch.fft`` transforms, the convolution kernel built from
-the runtime box, and forces gathered from the lambda-combined potential
-grids.  It is plain array code in the JAX package too.
+``pme.py:874-935``) works on atoms: B-spline stencils spread into 64-bit
+fixed-point grids (:func:`spread_fixed`), ``torch.fft`` transforms, the
+convolution kernel built from the runtime box, and forces gathered from
+the lambda-combined potential grids.  It is plain array code in the JAX
+package too.
+
+The spread is repeatable to the bit on every device, as the reference's
+CUDA platform's is (its fixed-point charge spreading): each stencil
+contribution is rounded once to an integer multiple of 2^-k, the integers
+are added with ``index_add_`` (integer addition is associative, so the
+order in which atoms land, CUDA's atomics, a CUDA graph's replay or the
+ranks of a sharded sum change nothing), and the grid is converted once to
+the working dtype.  One code path serves the CPU and the card.
 """
 
 import math
@@ -213,20 +221,54 @@ def _stencil_lines(index, grid_shape, order):
     return [(index[:, a:a + 1] + offs) % grid_shape[a] for a in range(3)]
 
 
-def spread_charges(charges, subsets, index, theta, grid_shape, num_subsets,
-                   order=5):
-    """B-spline stencils of every atom added into per-subset grids
-    (nsub, nx, ny, nz) with ``index_add_``."""
+# 2^k sum|w| stays at or below 2^FIXED_POINT_BITS: 2^3 below int64's range,
+# more than the rounding of N * 125 contributions by half a unit each adds
+FIXED_POINT_BITS = 60
+FIXED_POINT_MAX_K = 100   # all-zero weights: a finite scale, and 2^k and
+                          # 2^-k stay normal floats
+
+
+def fixed_point_scale(weights):
+    """The fixed-point scale 2^k of a spread of ``weights`` (charges, or
+    LJPME's C6): the largest integer k with 2^k sum_i |w_i| <=
+    2^FIXED_POINT_BITS, as a 0-d float64 tensor on their device, built
+    there without a host sync (it may run in a CUDA graph's capture).
+    B-spline weights lie in [0, 1] and an atom's 125 stencil weights add up
+    to 1, so no grid point exceeds sum |w| and no int64 point overflows.
+    A sharded spread takes the scale of all atoms on every rank, so that
+    the ranks' grids add up to the single device's."""
+    total = weights.detach().abs().to(torch.float64).sum()
+    k = torch.floor(FIXED_POINT_BITS - torch.log2(total)).clamp(
+        -FIXED_POINT_MAX_K, FIXED_POINT_MAX_K)
+    # 2^k exactly: k + 1023 in the exponent field of a double
+    return torch.bitwise_left_shift(k.long() + 1023, 52).view(torch.float64)
+
+
+def spread_fixed(charges, subsets, index, theta, grid_shape, num_subsets,
+                 scale, order=5):
+    """B-spline stencils of every atom added into per-subset int64 grids
+    (nsub, nx, ny, nz): each contribution computed in the dtype of
+    ``charges``, rounded once to an integer number of units 2^-k (``scale``
+    = 2^k, :func:`fixed_point_scale`) and added with ``index_add_``, so the
+    sums are exact and the grid does not depend on the order of the
+    atoms."""
     nx, ny, nz = grid_shape
     ix, iy, iz = _stencil_lines(index, grid_shape, order)
     vals = (charges[:, None, None, None] * theta[:, 0, :, None, None]
             * theta[:, 1, None, :, None] * theta[:, 2, None, None, :])
     lin = (((subsets.long()[:, None, None, None] * nx + ix[:, :, None, None])
             * ny + iy[:, None, :, None]) * nz + iz[:, None, None, :])
-    grid = torch.zeros(num_subsets * nx * ny * nz, dtype=charges.dtype,
+    grid = torch.zeros(num_subsets * nx * ny * nz, dtype=torch.int64,
                        device=charges.device)
-    grid.index_add_(0, lin.reshape(-1), vals.reshape(-1))
+    grid.index_add_(0, lin.reshape(-1),
+                    torch.round(vals * scale).to(torch.int64).reshape(-1))
     return grid.reshape(num_subsets, nx, ny, nz)
+
+
+def fixed_to_grid(fixed, scale, dtype):
+    """An int64 grid of :func:`spread_fixed` as a ``dtype`` grid: each
+    point rounded once to ``dtype``, then times 2^-k (exact)."""
+    return fixed.to(dtype) * (1.0 / scale).to(dtype)
 
 
 def _freq_m2(grid_shape, recip, half):
@@ -317,7 +359,7 @@ def interpolate_forces(phi, charges, subsets, index, theta, dtheta, recip,
 def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
                    grid_shape, moduli, num_subsets, slice_subset_pairs,
                    slice_table, dispersion=False, order=5, eterm=None,
-                   group=None, energies=True):
+                   group=None, energies=True, scale=None):
     """Sliced PME of one term (Coulomb charges, or LJPME's C6 with
     ``dispersion``) on atoms: (slice energies (S,) float64, forces (N, 3));
     ``energies=False`` skips the energies (and their float64 spread) and
@@ -327,24 +369,32 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
     ``box``.  ``moduli`` (the three B-spline moduli), ``slice_subset_pairs``
     and ``slice_table`` are tensors on the device of ``positions`` (int64
     for the tables): a call copies nothing from the host, so it may run
-    inside a CUDA graph's capture.  The spread adds with ``index_add_``
-    (float atomics on CUDA).  In float32 the energies come from a second,
-    float64 spread of the same atoms (splines from a float64 reciprocal
-    box, a float64 grid and transform), as the fused engine's do (ROADMAP
-    D1): a float32 grid's rounding reaches a weak slice's dE/dlambda.
+    inside a CUDA graph's capture.  The spread is the fixed-point one
+    (:func:`spread_fixed`, at ``scale``, by default
+    ``fixed_point_scale(charges)``), so a call repeats to the bit and
+    atoms given in another order give the same grids, the same slice
+    energies and their forces in that order.  In float32 the energies come
+    from a second, float64 spread of the same atoms (splines from a float64
+    reciprocal box, a float64 grid and transform), as the fused engine's do
+    (ROADMAP D1): a float32 grid's rounding reaches a weak slice's
+    dE/dlambda.
 
     With ``group`` (a ``torch.distributed`` process group) the particle
-    arrays hold one rank's atoms (``parallel/pme_shard.py``): its grids
-    (the float64 one too) are summed over the group after the spread, so
-    the slice energies are every rank's and the forces those of the rank's
-    atoms."""
+    arrays hold one rank's atoms (``parallel/pme_shard.py``) and ``scale``
+    is that of all atoms, the same on every rank: its int64 grids (the
+    float64 energies' one too) are summed over the group before they are
+    converted, so they equal the single device's to the bit, the slice
+    energies are every rank's and the forces those of the rank's atoms."""
+    if scale is None:
+        scale = fixed_point_scale(charges)
     recip = recip_box_vectors(box)
     index, frac = grid_index_and_fraction(positions, recip, grid_shape)
     theta, dtheta = bsplines(frac, order)
-    grid = spread_charges(charges, subsets, index, theta, grid_shape,
-                          num_subsets, order)
+    fixed = spread_fixed(charges, subsets, index, theta, grid_shape,
+                         num_subsets, scale, order)
     if group is not None:
-        collectives.all_reduce(grid, group)
+        collectives.all_reduce(fixed, group)
+    grid = fixed_to_grid(fixed, scale, positions.dtype)
     nx, ny, nz = grid_shape
     if eterm is None:
         make = dispersion_eterm if dispersion else coulomb_eterm
@@ -358,12 +408,13 @@ def pme_reciprocal(positions, box, charges, subsets, lam_s, *, alpha,
         f64 = torch.float64
         index64, frac64 = grid_index_and_fraction(
             positions.to(f64), recip_box_vectors(box.to(f64)), grid_shape)
-        grid64 = spread_charges(charges.to(f64), subsets, index64,
-                                bsplines(frac64, order)[0], grid_shape,
-                                num_subsets, order)
+        fixed64 = spread_fixed(charges.to(f64), subsets, index64,
+                               bsplines(frac64, order)[0], grid_shape,
+                               num_subsets, scale, order)
         if group is not None:
-            collectives.all_reduce(grid64, group)
-        spectra64 = torch.fft.rfftn(grid64, dim=(1, 2, 3))
+            collectives.all_reduce(fixed64, group)
+        spectra64 = torch.fft.rfftn(fixed_to_grid(fixed64, scale, f64),
+                                    dim=(1, 2, 3))
     if energies:
         slice_energies = pme_slice_energies_ri(
             spectra64.real, spectra64.imag,

@@ -6,7 +6,11 @@ Only ``all_reduce`` (a sum) is used: gloo takes ``all_reduce`` and
 evaluation runs on both backends, several ranks on one card over gloo
 included.  A rank's share of a per-atom result is written into a
 zero-filled array and summed over the group: every other rank adds zeros,
-so the sum is exact.
+so the sum is exact.  The atom-space PME's grids are summed as int64
+fixed point (``ops/pme.spread_fixed``; NCCL and gloo both sum int64),
+exact in any order too: only the sums of float partial results (the slab
+step's forces and slice energies, the sharded direct space's energies)
+round in the order of the ranks.
 """
 
 import torch

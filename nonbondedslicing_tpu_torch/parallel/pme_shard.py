@@ -5,9 +5,12 @@ The reference's multi-GPU scheme computes the whole reciprocal space on one
 device (CommonNonbondedSlicingKernels.cpp:388,416,465).  Here each rank
 takes a range of ceil(N / size) atoms:
 
-* **spread**: it spreads its atoms into full per-subset grids, and the
-  grids are summed over the group (an all-reduce of (nsub, nx, ny, nz)
-  values; in float32 also the float64 grid of the slice energies, D1);
+* **spread**: it spreads its atoms into full per-subset int64
+  fixed-point grids at the scale of all atoms (``ops/pme.spread_fixed``),
+  and the grids are summed over the group as integers (an all-reduce of
+  (nsub, nx, ny, nz) int64 values; in float32 also the grid of the slice
+  energies' float64 spread, D1), so the summed grids equal the single
+  device's to the bit at any group size;
 * **convolution + slice energies**: the FFTs, the convolution and the slice
   energies run on every rank, on the summed grids;
 * **interpolate**: each rank interpolates the forces of its own atoms, and
@@ -75,7 +78,8 @@ def make_pme_device_term(group, num_particles, *, alpha, grid_shape, moduli,
             subsets[start:end], lam_s, alpha=alpha, grid_shape=grid_shape,
             moduli=mod, num_subsets=num_subsets, slice_subset_pairs=pairs,
             slice_table=table, dispersion=dispersion, order=order,
-            eterm=eterm, group=group, energies=energies)
+            eterm=eterm, group=group, energies=energies,
+            scale=pme.fixed_point_scale(charges))
         return slice_e, f_s, start
 
     return rows, n_pad, term
@@ -87,8 +91,10 @@ def make_sharded_pme(group, num_particles, *, alpha, grid_shape, moduli,
     """Returns f(positions, box, charges, subsets, lam_s, eterm=None) ->
     (slice_energies (S,) float64, forces (N, 3)) computing one sliced-PME
     term sharded over ``group`` by atom range; inputs are replicated and
-    every rank returns the same full result, equal to
-    ``ops/pme.pme_reciprocal``'s to rounding (the order of the sums)."""
+    every rank returns the same full result.  The summed grids equal
+    ``ops/pme.pme_reciprocal``'s to the bit, and so do the slice energies;
+    a rank's forces are those of its atoms in the unsharded call, up to
+    the order in which the interpolation of a shorter atom array sums."""
     _, _, term = make_pme_device_term(
         group, num_particles, alpha=alpha, grid_shape=grid_shape,
         moduli=moduli, num_subsets=num_subsets,

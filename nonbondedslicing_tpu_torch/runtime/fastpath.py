@@ -344,9 +344,9 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     as above; ``reuse_steps`` is ignored, ``run.config["reuse_steps"]`` is
     1 and ``run.config["route"]`` names the engine's route.  Its steps run
     in windows of :data:`SIMPLE_WINDOW` steps, graphed on CUDA tensors as
-    the fused path's are; the atom-space PME spreads with ``index_add_``
-    (float atomics on CUDA), so there a replay equals its eager body only
-    to rounding.  The runtime box may differ from the plan's.
+    the fused path's are; the atom-space PME spreads in int64 fixed point
+    (``ops/pme.spread_fixed``), so a replay equals its eager body to the
+    bit there too.  The runtime box may differ from the plan's.
     """
     mixed = bool(mixed_precision) and dtype == torch.float32
     pos_dtype = torch.float64 if mixed else dtype

@@ -10,11 +10,12 @@
   cube of the benchmark state's waters at its density (2.52 nm, 1,596
   atoms) through the Context (all
   pairs and the atom-space PME, graphed windows), constraints kept and
-  energies finite; its graph against its eager body in float64 within
-  1e-9 nm over two windows: the atom-space PME spreads with
-  ``index_add_``, float atomics, so the two agree to rounding, not to the
-  bit (in float32 that rounding grows to 1.8e-4 nm over the 50 steps, on
-  an H100).
+  energies finite; its graph against its eager body over two windows,
+  in float64 and in float32: positions, velocities and energy equal to
+  the bit (the atom-space PME spreads in int64 fixed point).
+* getState twice on the card, with setPositions between, on the rigid
+  box under PME and LJPME, on both platforms: forces, energy and
+  dE/dlambda equal to the bit.
 
 Marked ``gpu``; they skip (from inside the fixture) where no CUDA device
 is present.  On a machine with an H100:
@@ -40,7 +41,6 @@ from port_systems import (D_HH, D_OH, DT_PS, N_MOLECULES, STATE_FILE,
 pytestmark = pytest.mark.gpu
 
 CAPACITY = 144            # tests/test_torch_gpu_graph.py's
-SIMPLE_GRAPH_NM = 1e-9    # graph against eager, the per-step rebuild, f64
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +114,31 @@ def test_ewald_graph_equals_eager(cuda, state):
     p_e, v_e, e_e = run.eager(p, v, *args, 2 * K)
     assert run.stats["captures"] == 1 and run.stats["replays"] == 2
     assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
-    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+    assert float(e_g) == float(e_e)
+
+
+@pytest.mark.parametrize("method", ["PME", "LJPME"])
+@pytest.mark.parametrize("platform", ["CUDA", "Reference"])
+def test_get_state_repeats_to_the_bit(cuda, state, platform, method):
+    """The port's counterpart on the card of the JAX package's
+    ``test_two_forces.py::test_deterministic_forces``: the rigid box
+    through a Context on ``platform`` (CUDA: float32, Reference:
+    float64), getState twice with setPositions between."""
+    pos_np, _ = state
+    system, force, _, _ = build_system(nbt, method)
+    ctx = nbt.Context(system, nbt.VerletIntegrator(DT_PS),
+                      nbt.Platform.getPlatformByName(platform))
+    states = []
+    for _ in range(2):
+        ctx.setPositions(pos_np)
+        states.append(ctx.getState(getForces=True, getEnergy=True,
+                                   getParameterDerivatives=True))
+    a, b = states
+    np.testing.assert_array_equal(np.asarray(a.getForces()),
+                                  np.asarray(b.getForces()))
+    assert a.getPotentialEnergy() == b.getPotentialEnergy()
+    assert (a.getEnergyParameterDerivatives()
+            == b.getEnergyParameterDerivatives())
 
 
 def test_per_step_rebuild_cube(cuda, state):
@@ -137,20 +161,21 @@ def test_per_step_rebuild_cube(cuda, state):
     st = ctx.getState(getPositions=True, getEnergy=True)
     assert np.isfinite(st.getPotentialEnergy())
     assert _max_constraint_error(st.getPositions()) <= 1e-5
-    # graph against eager in float64 over two windows from the Context's
-    # state
-    f64 = torch.float64
-    run64 = make_md_step(plan, np.tile(WATER_MASSES, n_w), dt=DT_PS,
-                         dtype=f64, constraints=constraints)
-    args = (torch.as_tensor(np.diag([edge] * 3), device=cuda, dtype=f64),
-            torch.ones(2, device=cuda, dtype=f64),
-            tengine.plan_data(plan, device=cuda, dtype=f64))
-    p = torch.as_tensor(np.asarray(st.getPositions()), device=cuda)
-    v = torch.as_tensor(np.asarray(ctx.getState(
-        getVelocities=True).getVelocities()), device=cuda)
-    p, v, _ = run64(p, v, *args, SIMPLE_WINDOW)
-    p_g, _, e_g = run64(p, v, *args, 2 * SIMPLE_WINDOW)
-    p_e, _, e_e = run64.eager(p, v, *args, 2 * SIMPLE_WINDOW)
-    assert run64.stats["captures"] == 1 and run64.stats["replays"] == 2
-    assert float((p_g - p_e).abs().max()) <= SIMPLE_GRAPH_NM
-    assert abs(float(e_g) - float(e_e)) <= 1e-12 * abs(float(e_e))
+    # graph against eager in float64 and in float32 over two windows from
+    # the Context's state
+    vel = np.asarray(ctx.getState(getVelocities=True).getVelocities())
+    for dtype in (torch.float64, torch.float32):
+        run = make_md_step(plan, np.tile(WATER_MASSES, n_w), dt=DT_PS,
+                           dtype=dtype, constraints=constraints)
+        args = (torch.as_tensor(np.diag([edge] * 3), device=cuda).to(dtype),
+                torch.ones(2, device=cuda, dtype=dtype),
+                tengine.plan_data(plan, device=cuda, dtype=dtype))
+        p = torch.as_tensor(np.asarray(st.getPositions()),
+                            device=cuda).to(dtype)
+        v = torch.as_tensor(vel, device=cuda).to(dtype)
+        p, v, _ = run(p, v, *args, SIMPLE_WINDOW)
+        p_g, v_g, e_g = run(p, v, *args, 2 * SIMPLE_WINDOW)
+        p_e, v_e, e_e = run.eager(p, v, *args, 2 * SIMPLE_WINDOW)
+        assert run.stats["captures"] == 1 and run.stats["replays"] == 2
+        assert torch.equal(p_g, p_e) and torch.equal(v_g, v_e)
+        assert float(e_g) == float(e_e)

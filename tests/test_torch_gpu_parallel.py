@@ -100,9 +100,11 @@ def test_sharded_compute_two_ranks_on_one_card(cuda, tmp_path):
 
 
 # nm after 20 steps of 2 fs between two runs of the same step whose
-# forces differ by float32 rounding (the atom-range PME's grids summed in
-# another order, D10: within 1e-5 of max|F| ~ 4e3 kJ/mol/nm, phase 14's
-# gate, which move an atom of 1 amu by at most sum_k k dt^2 dF / m = 210 *
+# forces differ by float32 rounding (an atom's pair, reciprocal and
+# exclusion-row forces come from different ranks and are added by the
+# all_reduce in another order, D10: within 1e-5 of max|F| ~ 4e3
+# kJ/mol/nm, phase 14's gate, which move an atom of 1 amu by at most
+# sum_k k dt^2 dF / m = 210 *
 # 4e-6 * 0.04 = 3.4e-5 nm), and whose float32 constraint solves round
 # inputs an ulp apart up to 8 ulps apart (1.9e-6 nm below 4 nm), each
 # carried into every later step by the velocity: 210 * 1.9e-6 = 4.0e-4 nm
@@ -136,7 +138,8 @@ def test_slab_step_two_ranks_on_one_card(cuda, tmp_path):
     positions after 20 steps within TOL_SLAB_MD of the same step in a
     1-rank group (the whole grid on one rank), and the energy of the
     starting state within 1e-6 of its (phase 14's gate: the same
-    positions, the grids summed in another order)."""
+    positions, the ranks' float64 pair and exclusion-row energies summed
+    in another order; the PME grids are summed as integers)."""
     plan, pos, vel, masses, cons = _slab_cube()
     kw = dict(plan=plan, positions=pos, velocities=vel, masses=masses,
               constraints=cons, n_steps=20, reuse_steps=SLAB_K)
@@ -164,9 +167,9 @@ def test_slab_step_two_ranks_on_one_card(cuda, tmp_path):
 def test_slab_step_nccl_graphed(cuda, tmp_path):
     """One rank over NCCL: the windows replay CUDA graphs with the force
     all_reduce captured; two windows of the graph against two of the
-    eager body from the same state within TOL_SLAB_MD (the atom-range
-    PME's index_add_ adds in another order in each), no capture after
-    the warm-up."""
+    eager body from the same state equal to the bit (positions,
+    velocities and energy: the atom-range PME's grids are int64 sums), no
+    capture after the warm-up."""
     plan, pos, vel, masses, cons = _slab_cube()
     ranks = torch_parallel_cases.run_ranks(
         1, str(tmp_path), [("slab", "torch_parallel_cases:slab_card",
@@ -178,4 +181,6 @@ def test_slab_step_nccl_graphed(cuda, tmp_path):
     assert out["config"]["graph"] is True
     g = out["graph"]
     assert g["captures"][0] >= 1 and g["captures"][1] == g["captures"][0]
-    assert np.abs(g["pos"][0] - g["pos"][1]).max() <= TOL_SLAB_MD
+    assert np.array_equal(g["pos"][0], g["pos"][1])
+    assert np.array_equal(g["vel"][0], g["vel"][1])
+    assert g["energy"][0] == g["energy"][1]

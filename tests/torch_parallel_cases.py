@@ -461,5 +461,7 @@ def slab_card(group, device, plan, positions, velocities, masses,
         run(p, v, box, gvals, data, 2 * K)
         out["graph"] = dict(
             pos=[x[0].cpu().numpy() for x in (graphed, eager)],
+            vel=[x[1].cpu().numpy() for x in (graphed, eager)],
+            energy=[float(x[2]) for x in (graphed, eager)],
             captures=(captures, run.stats["captures"]))
     return out

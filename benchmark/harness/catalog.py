@@ -1,0 +1,68 @@
+"""What the benchmark runs, found by name.
+
+* ``BENCHMARK.json`` at the root of the checkout lists the cells and the
+  metrics;
+* ``benchmark/configs/<name>.json``: a configuration;
+* ``benchmark/traffic/<name>.json``: a traffic mix;
+* ``benchmark/limits/<cell>.json``: the limits of a cell's comparison;
+* ``benchmark/metrics/<name>.py``: a metric's reader, a function
+  ``read(run)`` that returns a number or None.
+
+A cell, a mix or a metric is added by adding files and entries; nothing
+here names one.
+"""
+
+import importlib.util
+import json
+import os
+
+BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH_DIR)
+
+
+def _json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def benchmark():
+    return _json(os.path.join(ROOT, "BENCHMARK.json"))
+
+
+def config(name):
+    return _json(os.path.join(BENCH_DIR, "configs", f"{name}.json"))
+
+
+def traffic(name):
+    return _json(os.path.join(BENCH_DIR, "traffic", f"{name}.json"))
+
+
+def limits(cell):
+    return _json(os.path.join(BENCH_DIR, "limits", f"{cell}.json"))
+
+
+def cell(bench, name):
+    """The workload entry ``name`` of ``bench``; KeyError if none."""
+    for entry in bench["workloads"]:
+        if entry["name"] == name:
+            return entry
+    raise KeyError(f"no workload named {name!r} in BENCHMARK.json")
+
+
+def reader(name):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    path = os.path.join(BENCH_DIR, "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_metric_{name.replace('.', '_').replace('-', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def metrics_of(bench, cell_name, traced):
+    """The metric entries a run of ``cell_name`` reports: the end-to-end
+    ones untraced, the per-layer ones traced, each where its
+    ``workloads`` list names the cell or it has none."""
+    entries = bench["per_layer"] if traced else bench["end_to_end"]
+    return [m for m in entries
+            if "workloads" not in m or cell_name in m["workloads"]]

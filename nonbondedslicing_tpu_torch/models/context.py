@@ -31,6 +31,7 @@ from ..ops import plan as plan_mod
 from ..ops.geometry import min_image
 from ..ops.params import slice_lambdas
 from ..ops.plan import EWALD_METHODS
+from ..runtime import profiling
 from .force import (HarmonicBondForce, NonbondedForce, OpenMMException,
                     SlicedNonbondedForce)
 
@@ -423,12 +424,16 @@ class Context:
                 "changing the box vectors.")
 
     def _tensor(self, array, dtype):
-        return torch.as_tensor(np.asarray(array, dtype=np.float64),
-                               device=self._device).to(dtype)
+        return profiling.to_device(np.asarray(array, dtype=np.float64),
+                                   self._device).to(dtype)
+
+    def _gvals_np(self, comp):
+        return np.array([self._parameters[name]
+                         for name in comp.plan.global_names],
+                        dtype=np.float64)
 
     def _gvals(self, comp):
-        return self._tensor([self._parameters[name]
-                             for name in comp.plan.global_names], comp.dtype)
+        return self._tensor(self._gvals_np(comp), comp.dtype)
 
     def _evaluate(self, groups_mask):
         """Energy, forces (numpy float64) and dE/dlambda summed over every
@@ -455,9 +460,10 @@ class Context:
                     and bool(groups_mask >> recip_group & 1))
                 if not (include_direct or include_reciprocal):
                     continue
-                self._check_box(force, comp)
-                e, f, d = self._evaluate_sliced(comp, include_direct,
-                                                include_reciprocal)
+                with profiling.span("nbs.eval"):
+                    self._check_box(force, comp)
+                    e, f, d = self._evaluate_sliced(comp, include_direct,
+                                                    include_reciprocal)
                 total_energy += e
                 total_forces += f
                 for name, val in zip(comp.plan.deriv_names, d):
@@ -465,7 +471,8 @@ class Context:
             elif isinstance(force, HarmonicBondForce):
                 if not (groups_mask >> force.getForceGroup() & 1):
                     continue
-                e, f = self._harmonic_bonds(force)
+                with profiling.span("nbs.bonds"):
+                    e, f = self._harmonic_bonds(force)
                 total_energy += e
                 total_forces += f
         return total_energy, total_forces, derivs
@@ -478,23 +485,27 @@ class Context:
         route in float32, an excluded pair a cell width or more apart
         raises: the kernel corrects only the excluded pairs it meets among
         the 27 neighbour cells."""
-        positions = self._tensor(self._positions, comp.dtype)
-        box = self._tensor(self._box, comp.dtype)
-        gvals = self._gvals(comp)
+        with profiling.span("nbs.eval.copy_in"):
+            positions = self._tensor(self._positions, comp.dtype)
+            box = self._tensor(self._box, comp.dtype)
+            gvals = self._gvals(comp)
         while True:
             fn = comp.fn(include_direct, include_reciprocal)
-            slice_e, forces, aux = fn(positions, box, gvals, comp.data)
-            span = aux.get("excl_span")
-            guards = torch.stack([aux["overflow"].to(torch.float64),
-                                  torch.zeros((), dtype=torch.float64,
-                                              device=self._device)
-                                  if span is None else span]).tolist()
+            with profiling.span("nbs.eval.engine"):
+                slice_e, forces, aux = fn(positions, box, gvals, comp.data)
+            with profiling.span("nbs.eval.guard"):
+                span = aux.get("excl_span")
+                guards = profiling.to_list(torch.stack(
+                    [aux["overflow"].to(torch.float64),
+                     torch.zeros((), dtype=torch.float64, device=self._device)
+                     if span is None else span]))
             if guards[0] == 0:
                 break
             if not comp.grow_capacity():
                 raise OpenMMException(
                     "Internal error: cell capacity covers all particles yet "
                     "the occupancy table overflowed")
+            profiling.count("eval.capacity_grows")
         if guards[1] >= 1.0 and comp.dtype == torch.float32:
             raise OpenMMException(
                 "SlicedNonbondedForce: an excluded pair spans more than one "
@@ -502,13 +513,18 @@ class Context:
                 "kernel corrects only the excluded pairs of neighbouring "
                 "cells, so excluded pairs must be bonded-range. Use the "
                 "Reference platform.")
-        lam = slice_lambdas(comp.plan.lam_source, gvals)
-        energy = float(engine_mod.contract_energy(slice_e, lam))
-        derivs = []
-        if comp.plan.deriv_names:
-            derivs = engine_mod.parameter_derivatives(
-                slice_e, comp.plan.deriv_mask).tolist()
-        return (energy, forces.to("cpu", torch.float64).numpy(), derivs)
+        with profiling.span("nbs.eval.reduce"):
+            lam = slice_lambdas(profiling.to_device(
+                comp.plan.lam_source.astype(np.int64), self._device), gvals)
+            energy = profiling.to_list(
+                engine_mod.contract_energy(slice_e, lam))
+            derivs = []
+            if comp.plan.deriv_names:
+                derivs = profiling.to_list(engine_mod.parameter_derivatives(
+                    slice_e, comp.plan.deriv_mask))
+        with profiling.span("nbs.eval.copy_out"):
+            forces = profiling.to_host(forces)
+        return energy, forces, derivs
 
     def _harmonic_bonds(self, force):
         if force.getNumBonds() == 0:
@@ -587,6 +603,13 @@ class Context:
                  getForces=False, getEnergy=False,
                  getParameterDerivatives=False, enforcePeriodicBox=False,
                  groups=None):
+        with profiling.span("nbs.getState"):
+            return self._get_state(getPositions, getVelocities, getForces,
+                                   getEnergy, getParameterDerivatives,
+                                   enforcePeriodicBox, groups)
+
+    def _get_state(self, getPositions, getVelocities, getForces, getEnergy,
+                   getParameterDerivatives, enforcePeriodicBox, groups):
         energy = forces = None
         derivs = {}
         if getForces or getEnergy or getParameterDerivatives:
@@ -611,7 +634,8 @@ class Context:
     def createCheckpoint(self):
         """Dynamic state (positions, velocities, box, parameters) as bytes."""
         from ..runtime.checkpoint import create_checkpoint
-        return create_checkpoint(self)
+        with profiling.span("nbs.checkpoint"):
+            return create_checkpoint(self)
 
     def loadCheckpoint(self, blob):
         from ..runtime.checkpoint import load_checkpoint
@@ -700,7 +724,7 @@ class Context:
         never advances."""
         md = comp.md.setdefault(dt, dict(reuse=None, cap=None, runs={}))
         n = comp.plan.num_particles
-        gvals = self._gvals(comp)
+        gvals = self._gvals_np(comp)
         while True:
             run = self._md_run(comp, dt, md["reuse"], md["cap"])
             try:
@@ -718,10 +742,12 @@ class Context:
                     md["cap"] = min(2 * cap, n)
                 else:
                     raise
+                profiling.count("md.retries")
         # float64 on the host between calls: under mixed precision the
         # positions keep their low bits from one step() to the next
-        self._positions = pos.to("cpu", torch.float64).numpy()
-        self._velocities = vel.to("cpu", torch.float64).numpy()
+        with profiling.span("nbs.step.copy_out"):
+            self._positions = profiling.to_host(pos)
+            self._velocities = profiling.to_host(vel)
 
     def _clustered_constraints(self):
         """System constraints as (pairs, dists, mask) M-SHAKE clusters, or
@@ -735,6 +761,10 @@ class Context:
         return self._constraint_clusters
 
     def _integrate(self, steps, dt):
+        with profiling.span("nbs.step"):
+            self._step(steps, dt)
+
+    def _step(self, steps, dt):
         comp = self._md_comp()
         if comp is not None:
             self._fast_md(comp, steps, dt)
@@ -761,5 +791,5 @@ class Context:
             vel = self._tensor(self._velocities, torch.float64)
             pos_new = proj_x(pos, pos + dt * vel)
             vel = proj_v(pos_new, (pos_new - pos) / dt)
-            self._positions = pos_new.to("cpu").numpy()
-            self._velocities = vel.to("cpu").numpy()
+            self._positions = profiling.to_host(pos_new)
+            self._velocities = profiling.to_host(vel)

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..models.force import NonbondedForce
+from ..runtime import profiling
 from ..utils.constants import COUL, EPSILON0, ONE_4PI_EPS0, SQRT_PI, VDW
 from ..utils.indexing import slice_subsets
 from . import (bonded, cuda_direct, cuda_pme, ewald, neighbors, params, pme,
@@ -390,6 +391,10 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
 
     def prepare(positions, box, gvals, data):
         """Slot table + assignment-static tensors (rebuild every K steps)."""
+        with profiling.span("nbs.engine.direct"):
+            return _prepare(positions, box, gvals, data)
+
+    def _prepare(positions, box, gvals, data):
         dev = positions.device
         state = slot_state(positions, box, gvals, data, counts=counts,
                            capacity=capacity, n=n, cell_kernel=use_cell,
@@ -424,22 +429,25 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
         lam_v_nn = lam_v[idx["sl_tab"]].contiguous()
         charge = state["charge"]
 
-        slot_pos = slot_positions(positions, state, use_cell)
-        pair_args = (slot_pos, state["slot_par"], state["slot_sub"],
-                     state["table"], state["sexcl"], lam_c_nn, lam_v_nn, box,
-                     pair_cfg, energies, n)
-        pair = cuda_direct.pair_cell if use_cell else cuda_direct.pair_column
-        slot_f, moments = pair(*pair_args)
+        with profiling.span("nbs.engine.direct"):
+            slot_pos = slot_positions(positions, state, use_cell)
+            pair_args = (slot_pos, state["slot_par"], state["slot_sub"],
+                         state["table"], state["sexcl"], lam_c_nn, lam_v_nn,
+                         box, pair_cfg, energies, n)
+            pair = (cuda_direct.pair_cell if use_cell
+                    else cuda_direct.pair_column)
+            slot_f, moments = pair(*pair_args)
 
-        slice_e = None
-        if energies:
-            # the moment panels (one per cell or per block) summed in f64
-            slice_e = moment_slice_energies(moments, slice_pairs, nslices)
+            slice_e = None
+            if energies:
+                # the moment panels (one per cell or per block) summed in f64
+                slice_e = moment_slice_energies(moments, slice_pairs, nslices)
 
         if is_ewald_family and energies:
-            add_self_energies(slice_e, plan, charge, state["sig_half"],
-                              state["eps2"], data["subsets"], box,
-                              slice_pairs)
+            with profiling.span("nbs.engine.self_plasma"):
+                add_self_energies(slice_e, plan, charge, state["sig_half"],
+                                  state["eps2"], data["subsets"], box,
+                                  slice_pairs)
 
         if is_pme:
             if use_windows:
@@ -465,50 +473,55 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 return e, pme_bricks.bricks_to_cells(
                     f_b.transpose(1, 2), counts, bricks).transpose(1, 2)
 
-            e_k, f_k = reciprocal("slot_q", lam_c_nn, "pme_grid", False)
-            slot_f = slot_f + f_k
-            if energies:
-                slice_e[:, COUL] += e_k
-            if ljpme:
-                e_d, f_d = reciprocal("slot_c6", lam_v_nn, "dispersion_grid",
-                                      True)
-                slot_f = slot_f + f_d
+            with profiling.span("nbs.engine.reciprocal"):
+                e_k, f_k = reciprocal("slot_q", lam_c_nn, "pme_grid", False)
+                slot_f = slot_f + f_k
                 if energies:
-                    slice_e[:, VDW] += e_d
+                    slice_e[:, COUL] += e_k
+                if ljpme:
+                    e_d, f_d = reciprocal("slot_c6", lam_v_nn,
+                                          "dispersion_grid", True)
+                    slot_f = slot_f + f_d
+                    if energies:
+                        slice_e[:, VDW] += e_d
 
         # single slot->atom unsort: gather by the inverse permutation
         forces = slot_f.transpose(1, 2).reshape(-1, 3)[state["inv_slots"]]
 
         if bare_ewald:
-            e_k, f_k = ewald.ewald_reciprocal(
-                positions, box, charge, data["subsets"], lam_c,
-                kvec_ints=idx["kvec"], alpha=plan.ewald_alpha,
-                num_subsets=nsub, slice_table=idx["sl_tab"],
-                slice_subset_pairs=idx["spairs"], energies=energies)
-            forces = forces + f_k
-            if energies:
-                slice_e[:, COUL] += e_k
+            with profiling.span("nbs.engine.reciprocal"):
+                e_k, f_k = ewald.ewald_reciprocal(
+                    positions, box, charge, data["subsets"], lam_c,
+                    kvec_ints=idx["kvec"], alpha=plan.ewald_alpha,
+                    num_subsets=nsub, slice_table=idx["sl_tab"],
+                    slice_subset_pairs=idx["spairs"], energies=energies)
+                forces = forces + f_k
+                if energies:
+                    slice_e[:, COUL] += e_k
 
         if is_ewald_family and not use_cell:
-            e_x, f_x = bonded.exclusion_corrections_rows(
-                positions, charge, state["sig_half"], state["eps2"],
-                state["pair_slices"], lam_c, lam_v, alpha=plan.ewald_alpha,
-                ljpme=ljpme, dispersion_alpha=plan.dispersion_alpha,
-                num_slices=nslices)
-            forces = forces + f_x
-            if energies:
-                slice_e += e_x
+            with profiling.span("nbs.engine.exclusions"):
+                e_x, f_x = bonded.exclusion_corrections_rows(
+                    positions, charge, state["sig_half"], state["eps2"],
+                    state["pair_slices"], lam_c, lam_v,
+                    alpha=plan.ewald_alpha, ljpme=ljpme,
+                    dispersion_alpha=plan.dispersion_alpha,
+                    num_slices=nslices)
+                forces = forces + f_x
+                if energies:
+                    slice_e += e_x
 
         if data["nb14_atoms"].shape[0]:
-            sigma14, four_eps14, qq14 = params.nb14_params(data, gvals)
-            e_14, f_14 = bonded.nb14_interactions(
-                positions, box, data["nb14_atoms"], sigma14, four_eps14, qq14,
-                data["nb14_slice"], lam_c, lam_v,
-                periodic=plan.exceptions_periodic, num_slices=nslices,
-                num_particles=n)
-            forces = forces + f_14
-            if energies:
-                slice_e += e_14
+            with profiling.span("nbs.engine.nb14"):
+                sigma14, four_eps14, qq14 = params.nb14_params(data, gvals)
+                e_14, f_14 = bonded.nb14_interactions(
+                    positions, box, data["nb14_atoms"], sigma14, four_eps14,
+                    qq14, data["nb14_slice"], lam_c, lam_v,
+                    periodic=plan.exceptions_periodic, num_slices=nslices,
+                    num_particles=n)
+                forces = forces + f_14
+                if energies:
+                    slice_e += e_14
 
         if energies and disp_correction:
             # per-slice long-range dispersion correction / volume

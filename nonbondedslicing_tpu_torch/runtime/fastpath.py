@@ -48,6 +48,7 @@ from ..ops import fused as fused_mod
 from ..ops.geometry import min_image
 from ..ops.params import slice_lambdas
 from ..utils.indexing import incidence_sums, incidence_table
+from . import profiling
 
 # nm — Verlet-list style cell oversizing for MD reuse (as the JAX package)
 DEFAULT_SKIN = 0.09
@@ -168,7 +169,9 @@ class _WindowGraphs:
     ``data``'s tensors where they lay at capture: ``data`` tensors at other
     addresses drop every graph, so that only the newest captures are kept.
     A failed capture raises.  ``stats`` counts captures, replays and the
-    kernel launches the replays added to the counters."""
+    kernel launches the replays added to the counters; the captures and
+    replays are counted in ``profiling``'s ``graph.captures`` and
+    ``graph.replays`` too."""
 
     def __init__(self, window):
         self.window = window
@@ -217,6 +220,7 @@ class _WindowGraphs:
             launches = _take_launches(before)
         self.graphs[k] = (graph, launches)
         self.stats["captures"] += 1
+        profiling.count("graph.captures")
 
     def run(self, blocks, pos, vel, box, gvals, data):
         """Windows of the lengths in ``blocks`` from the given state;
@@ -230,10 +234,12 @@ class _WindowGraphs:
             b[name].zero_()
         for k in blocks:
             if k not in self.graphs:
-                self._warm_up_and_capture(k, data)
+                with profiling.span("nbs.step.capture"):
+                    self._warm_up_and_capture(k, data)
                 continue
             graph, launches = self.graphs[k]
             graph.replay()
+            profiling.count("graph.replays")
             for counter, name, n in launches:
                 counter[name] += n
             self.stats["replays"] += 1
@@ -269,8 +275,8 @@ def check_guards(ov, dmax, span, disp_limit2, skin, scope=""):
     more than skin/2 between rebuilds (``dmax`` the largest squared
     displacement, against ``disp_limit2``); ``scope`` names the run in the
     messages.  One device->host transfer."""
-    ov_cell, dmax_h, span_h = torch.stack(
-        [ov.to(torch.float64), dmax.to(torch.float64), span]).tolist()
+    ov_cell, dmax_h, span_h = profiling.to_list(torch.stack(
+        [ov.to(torch.float64), dmax.to(torch.float64), span]))
     if ov_cell > 0:
         raise OpenMMException(
             f"Cell-list capacity overflow ({int(ov_cell)} atoms dropped)"
@@ -446,7 +452,7 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
         # the convolution kernel and static cell grid are box0-only
         # (tolerance covers the f32 cast of an f64 default box)
         if torch.is_tensor(box):
-            box = box.detach().to("cpu", torch.float64).numpy()
+            box = profiling.to_host(box.detach())
         if not np.allclose(np.asarray(box, dtype=np.float64), box0, rtol=0.0,
                            atol=1e-6 * float(np.max(np.abs(box0)))):
             raise OpenMMException(
@@ -456,23 +462,28 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
 
     def _run(pos, vel, box, gvals, data, n_steps, graphed):
         dev = data["base_params"].device
-        if skin is not None:
-            check_box(box)
-        box = torch.as_tensor(box, device=dev).to(dtype)
-        pos = torch.as_tensor(pos, device=dev).to(pos_dtype)
-        vel = torch.as_tensor(vel, device=dev).to(dtype)
-        gvals = torch.as_tensor(gvals, device=dev).to(dtype)
-        pos, vel, (ov, dmax, span) = run_windows(
-            window, graphs, K, n_steps, pos, vel, box, gvals, data,
-            graphed and graph_ok)
-        # the evaluation with energies for the reported energy, eager
-        slice_e, ov_final, span_final = final(pos.to(dtype), box, gvals, data)
-        ov = torch.maximum(ov, ov_final)
-        if span_final is not None:
-            span = torch.maximum(span, span_final)
-        energy = engine_mod.contract_energy(
-            slice_e, slice_lambdas(lam_source(dev), gvals))
-        check_guards(ov, dmax, span, disp_limit2, skin)
+        with profiling.span("nbs.step.copy_in"):
+            if skin is not None:
+                check_box(box)
+            box = profiling.to_device(box, dev).to(dtype)
+            pos = profiling.to_device(pos, dev).to(pos_dtype)
+            vel = profiling.to_device(vel, dev).to(dtype)
+            gvals = profiling.to_device(gvals, dev).to(dtype)
+        with profiling.span("nbs.step.replay"):
+            pos, vel, (ov, dmax, span) = run_windows(
+                window, graphs, K, n_steps, pos, vel, box, gvals, data,
+                graphed and graph_ok)
+        with profiling.span("nbs.step.energy"):
+            # the evaluation with energies for the reported energy, eager
+            slice_e, ov_final, span_final = final(pos.to(dtype), box, gvals,
+                                                  data)
+            ov = torch.maximum(ov, ov_final)
+            if span_final is not None:
+                span = torch.maximum(span, span_final)
+            energy = engine_mod.contract_energy(
+                slice_e, slice_lambdas(lam_source(dev), gvals))
+        with profiling.span("nbs.step.guard"):
+            check_guards(ov, dmax, span, disp_limit2, skin)
         return pos, vel, energy
 
     def run(pos, vel, box, gvals, data, n_steps):

@@ -227,6 +227,15 @@ the last line:
    LJPME, C6) on the atoms and on the atoms permuted, in float32 and
    float64: slice energies equal to the bit, forces permuted to the bit.
    It prints how many evaluations it compared.
+17. (after phase 3) the water tail (csrc/water_tail.cu: the force unsort,
+   the water exclusion rows, the kick, SETTLE and RATTLE of a force-only
+   step in one kernel) against its plain twin on the slot forces of the
+   benchmark state, with TOL_TAIL_POS and TOL_TAIL_VEL; two launches equal
+   to the bit; CUDA-event times of the kernel and of the twin, eager and
+   as one CUDA graph, and the kernels one call of each puts on the card.
+   Phases 5 and 7 check that every step launches it once, phase 12 that
+   the Context's steps do, phase 10 (mixed precision) that it is not
+   launched.
 
 The two spread kernels (csrc/pme_spread.cu, csrc/pme_spread_windows.cu;
 their shared design in csrc/spread_common.cuh) are owner-computes: a block
@@ -398,6 +407,21 @@ GRID_POINT_OPS = 2      # a grid point: fixed point to float (pme_spread.cu)
 INTERP_OPS = 935        # a charged atom: splines and derivatives, 125-point
                         # gradient, force (pme_interp.cu)
 FOLD_OPS = 1            # a window point beyond a grid point's first: one add
+# the water tail (csrc/water_tail.cu), a molecule: bytes read once
+# (positions 36, velocities 36, three slot forces 36, slots 24, charges 12,
+# pair slices 24, inverse masses 12, SETTLE constants 56) and written once
+# (positions and velocities 72), and float operations (an upper count of
+# its arithmetic: rows ~100, kick and drift 36, SETTLE ~330, RATTLE ~170)
+TAIL_BYTES = 236 + 72
+TAIL_OPS = 640
+# the tail against its twin: both round every operation in the same order
+# with CUDA's erff, expf, sqrt and rsqrtf; PyTorch may order a three-term
+# sum otherwise or contract a cross product's terms, an ulp of an
+# intermediate, and SETTLE carries inputs an ulp apart to outputs up to 8
+# ulps apart (SLAB_ROUNDING_NM's note): 8 ulps of a coordinate below 8 nm;
+# the velocity (x_new - x0) / dt carries that over dt
+TOL_TAIL_POS = 3.8e-6     # nm
+TOL_TAIL_VEL = 1.9e-3     # nm/ps
 
 # the port's kernels: launch-count key -> (source, the TPU kernel's
 # pallas_call it replaces); a key's "_ljpme" and "_dispersion" variants
@@ -419,6 +443,9 @@ _SOURCES = {
                     "nonbondedslicing_tpu/ops/pallas_pme.py:316"),
     "pme_interp_windows": ("csrc/pme_interp_windows.cu",
                            "nonbondedslicing_tpu/ops/pallas_pme.py:391"),
+    "water_tail": ("csrc/water_tail.cu",
+                   "none: the JAX package's jnp unsort, exclusion rows "
+                   "(ops/bonded.py) and SETTLE (runtime/constraints.py)"),
 }
 KERNELS = {
     key: _SOURCES[base]
@@ -431,7 +458,8 @@ KERNELS = {
         ("pme_spread_windows", ("", "_dispersion")),
         ("pme_fold", ("", "_dispersion")),
         ("pme_extract", ("", "_dispersion")),
-        ("pme_interp_windows", ("", "_dispersion")))
+        ("pme_interp_windows", ("", "_dispersion")),
+        ("water_tail", ("",)))
     for key in (base + v for v in variants)}
 WINDOW_KERNELS = ("pme_spread_windows", "pme_fold", "pme_extract",
                   "pme_interp_windows")
@@ -442,6 +470,7 @@ DISPERSION_KERNELS = ("pme_spread_dispersion",
 # held against its plain twin at its path's shapes and counted in the run
 # of that path that goes through it
 ENTRIES = (
+    ("water_tail", "water_tail", "rigid", "rigid"),
     ("pair_column", "pair_column", "rigid", "rigid"),
     ("pair_column_energies", "pair_column_energies", "rigid", "rigid"),
     ("pme_spread", "pme_spread", "rigid", "rigid"),
@@ -505,11 +534,13 @@ RUN_KERNELS = {
     "generic": {"pair_cell_energies", "pair_cell_ljpme_energies"},
     "generic_rf": {"pair_cell_energies"},
     "rigid": {"pair_column", "pair_column_energies", "pme_spread",
-              "pme_spread_energies", "pme_interp"},
+              "pme_spread_energies", "pme_interp", "water_tail"},
+    "rigid_mixed": {"pair_column", "pair_column_energies", "pme_spread",
+                    "pme_spread_energies", "pme_interp"},
     "solute": {"pair_cell", "pair_cell_energies", "pme_spread",
                "pme_spread_energies", "pme_interp"},
     "rigid_grid": {"pair_column", "pair_column_energies",
-                   "pme_spread_energies", *WINDOW_KERNELS},
+                   "pme_spread_energies", "water_tail", *WINDOW_KERNELS},
     "solute_grid": {"pair_cell", "pair_cell_energies", "pme_spread_energies",
                     *WINDOW_KERNELS},
     "rigid_ljpme": {"pair_column_ljpme", "pair_column_ljpme_energies",
@@ -887,6 +918,75 @@ def cpu_evaluation(plan, capacity, pos_np, box_np, gvals_np):
     energy = float(engine_mod.contract_energy(
         e, slice_lambdas(plan.lam_source, gvals)))
     return energy, f, engine_mod.parameter_derivatives(e, plan.deriv_mask)
+
+
+def water_tail_check(plan, masses, constraints, capacity, pos, vel, box,
+                     gvals, data, reps):
+    """Phase 17: the water tail (csrc/water_tail.cu) against its plain
+    twin on the same slot forces of the benchmark state: two launches
+    equal to the bit, positions within TOL_TAIL_POS and velocities within
+    TOL_TAIL_VEL of the twin's; CUDA-event times of the kernel and of the
+    twin, eager and captured in one CUDA graph (as the MD step's windows
+    ran it before the kernel), and the kernels of one call of each."""
+    import torch
+    from nonbondedslicing_tpu_torch.ops.fused import make_fused_engine
+    from nonbondedslicing_tpu_torch.runtime import water_tail
+    from nonbondedslicing_tpu_torch.runtime.fastpath import (
+        DEFAULT_SKIN, make_integrator)
+    prepare, apply, _ = make_fused_engine(plan, cell_capacity=capacity,
+                                          target_skin=DEFAULT_SKIN,
+                                          energies=False)
+    integrate = make_integrator(masses, DT_PS, torch.float32, constraints)
+    tail = water_tail.make_water_tail(plan, DT_PS, integrate)
+    # row-major, as the MD step's buffers are (the state file's arrays are
+    # column-major, which the tail would copy first)
+    pos, vel = pos.contiguous(), vel.contiguous()
+    state = prepare(pos, box, gvals, data)
+    _, slot_f, aux = apply(pos, box, gvals, data, state, slot_forces=True)
+    args = (slot_f, pos, vel, state, aux["lam"])
+    p_k, v_k = tail(*args)
+    p_k2, v_k2 = tail(*args)
+    p_t, v_t = tail.plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(p_k, p_k2) and torch.equal(v_k, v_k2),
+          "water_tail: positions and velocities of two launches equal to "
+          "the bit (no atomics)")
+    dp = float((p_k - p_t).abs().max())
+    dv = float((v_k - v_t).abs().max())
+    same = torch.equal(p_k, p_t) and torch.equal(v_k, v_t)
+    check(dp <= TOL_TAIL_POS and dv <= TOL_TAIL_VEL,
+          f"water_tail: against the twin max|dx| {dp:.3e} <= {TOL_TAIL_POS} "
+          f"nm, max|dv| {dv:.3e} <= {TOL_TAIL_VEL} nm/ps (equal to the "
+          f"bit: {same})")
+    ms, plain_ms = timed_pair(lambda: tail(*args),
+                              lambda: tail.plain(*args), reps)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tail.plain(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tail.plain(*args)
+    g1 = cuda_ms(graph.replay, reps)
+    k3 = cuda_ms(lambda: tail(*args), reps)
+    g2 = cuda_ms(graph.replay, reps)
+    m = pos.shape[0] // 3
+    bound_ms, bound_by = bound(TAIL_OPS * m, TAIL_BYTES * m)
+    out = dict(max_abs_err=dp, max_abs_err_velocity=dv, equals_twin=same,
+               ms=ms, ms_beside_graph=k3, plain_ms=plain_ms,
+               plain_graph_ms=0.5 * (g1 + g2), bound_ms=bound_ms,
+               bound_by=bound_by,
+               launches_per_call=device_ops_per_call(lambda: tail(*args),
+                                                     "water_tail"),
+               plain_kernels_per_call=device_ops_per_call(
+                   lambda: tail.plain(*args), "water_tail_plain"))
+    print(f"water_tail: kernel {ms:.4f} ms ({k3:.4f} between the graph's "
+          f"timings), twin {plain_ms:.4f} ms eager, "
+          f"{out['plain_graph_ms']:.4f} ms as one CUDA graph of "
+          f"{out['plain_kernels_per_call']} kernels; bound {bound_ms:.6f} "
+          f"ms ({bound_by}, {m} waters)")
+    return out
 
 
 def pme_kernel_checks(names, slot_pos, st, box, cfg, plan, lam_nn, reps,
@@ -1315,13 +1415,13 @@ def run_md(chunks, p, v, box, gvals, data, n_timed):
     return p, v, energy, chunk_s, chunks.run.config
 
 
-def launch_report(label, chunks, launches, pair):
+def launch_report(label, chunks, launches, pair, tail=False):
     """The hand-written kernels' launches per step of an MD run: those the
     card ran (the wrappers' counters, which a graph's replays add to) and
     the host's launch calls of them (graph replays, and kernels launched
     outside a graph: the warm-up windows and the final evaluations).  The
     force-only ``pair`` kernel must have run once a step and its energies
-    variant once a run()."""
+    variant once a run(); with ``tail``, the water tail once a step."""
     total = sum(launches.values())
     replays, replayed = chunks.graph_stats()
     eager = total - replayed
@@ -1334,6 +1434,10 @@ def launch_report(label, chunks, launches, pair):
           f"{label}: {pair} launched once a step ({launches[pair]} in "
           f"{chunks.steps}), its energies variant once a run() "
           f"({launches[pair + '_energies']} in {chunks.calls})")
+    if tail:
+        check(launches["water_tail"] == chunks.steps,
+              f"{label}: water_tail launched once a step "
+              f"({launches['water_tail']} in {chunks.steps})")
 
 
 def md_checks(label, p, v, energy, masses, first_water, n_dof, chunk_s,
@@ -1375,7 +1479,6 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
     Returns the run, the state after the timed chunks and their ms/step
     ({"graph": [..], "eager": [..]})."""
     import torch
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     run = make_run(capacity, None)
     K = run.config["reuse_steps"]
     check(run.config["graph"], f"{label}: make_md_step graphs its windows")
@@ -1389,7 +1492,7 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
         reset_launches()
         out[name] = fn(p, v, box, gvals, data, 2 * K)
         torch.cuda.synchronize()
-        made[name] = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+        made[name] = all_launches()
     check(run.stats["replays"] == 2,
           f"{label}: two windows, two replays ({run.stats})")
     check(made["graph"] == made["eager"],
@@ -1414,7 +1517,8 @@ def graph_against_eager(label, make_run, capacity, p0, v0, box, gvals,
         ms[name].append(1e3 * (time.perf_counter() - t0) / CHUNK_STEPS)
     print(f"{label}: ms/step of {CHUNK_STEPS}-step chunks in turns: graph "
           f"{[round(x, 3) for x in ms['graph']]}, eager "
-          f"{[round(x, 3) for x in ms['eager']]} ({card})")
+          f"{[round(x, 3) for x in ms['eager']]} (capacity "
+          f"{capacity}; {card})")
     return run, (p, v), ms
 
 
@@ -2010,7 +2114,6 @@ def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
     """Phase 12: the user API on the card (see the module docstring)."""
     import torch
     import nonbondedslicing_tpu_torch as nbt
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import ewald
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
@@ -2023,7 +2126,7 @@ def api_phase(dev, card, reset_launches, results, run_launches, pos_np,
     reference = nbt.Platform.getPlatformByName("Reference")
 
     def launches():
-        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+        return all_launches()
 
     def context(system, platform, pos, vel=None, params=None):
         ctx = nbt.Context(system, nbt.VerletIntegrator(DT_PS), platform)
@@ -2349,7 +2452,6 @@ def constrained_phase(dev, card, reset_launches, results, run_launches,
     import importlib.util
     import torch
     import nonbondedslicing_tpu_torch as nbt
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
     from nonbondedslicing_tpu_torch.ops import plan as plan_mod
@@ -2396,7 +2498,7 @@ def constrained_phase(dev, card, reset_launches, results, run_launches,
     chunks = Chunks(make_run, capacity, nbt.OpenMMException)
     p, v, energy, chunk_s, config = run_md(chunks, pos0, vel0, box, gvals,
                                            data, SOLUTE_TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"constrained md: config {config}; graph {chunks.run.stats}; "
           f"warm-up chunk {chunk_s[0]:.2f} s, timed chunks "
           f"{[round(t, 3) for t in chunk_s[1:]]} s; launches {launches}")
@@ -2480,7 +2582,7 @@ def constrained_phase(dev, card, reset_launches, results, run_launches,
     ctx.setVelocities(solute_velocities(vel_np, kept))
 
     def launches_now():
-        return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+        return all_launches()
 
     c_run, made, _, _ = context_md(
         "context constrained md", ctx, c_force, masses, SOLUTE_SITES,
@@ -2543,10 +2645,19 @@ def card_inputs(plan, p_np, dtype, dev):
             engine_mod.plan_data(plan, device=dev, dtype=dtype))
 
 
+def launch_counters():
+    """The kernel wrappers' launch counters."""
+    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.runtime import water_tail
+    return (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES, water_tail.LAUNCHES)
+
+
 def all_launches():
     """Every hand-written kernel's launch count, by variant."""
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
-    return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    out = {}
+    for counts in launch_counters():
+        out.update(counts)
+    return out
 
 
 def sharded_rank(group, device, configs, md):
@@ -2561,13 +2672,12 @@ def sharded_rank(group, device, configs, md):
     harness ``make_multichip_md_step`` in float64.  Returns numpy arrays
     and numbers."""
     import torch
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.parallel import collectives, mesh
     dev = torch.device(device)
     f32, f64 = torch.float32, torch.float64
     computes = []
-    for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+    for counts in launch_counters():
         for key in counts:
             counts[key] = 0
     out = {}
@@ -2907,7 +3017,6 @@ def slab_rank(group, device, configs, timed_chunks):
     Returns numpy arrays and numbers."""
     import torch
     from nonbondedslicing_tpu_torch.models.force import OpenMMException
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
     from nonbondedslicing_tpu_torch.parallel import collectives, fused_shard
     dev = torch.device(device)
     f32 = torch.float32
@@ -2923,7 +3032,7 @@ def slab_rank(group, device, configs, timed_chunks):
         run = make_run(capacity, None)
         p10, v10, e10 = run(pos, vel, box, gvals, data, SLAB_CHECK_STEPS)
         chunks = Chunks(make_run, capacity, OpenMMException)
-        for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+        for counts in launch_counters():
             for key in counts:
                 counts[key] = 0
         p, v = pos, vel
@@ -3260,7 +3369,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import nonbondedslicing_tpu_torch as nbt
-    from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
+    from nonbondedslicing_tpu_torch.ops import cuda_direct
     from nonbondedslicing_tpu_torch.ops import engine as engine_mod
     from nonbondedslicing_tpu_torch.ops import fused as fused_mod
     from nonbondedslicing_tpu_torch.ops import neighbors, plan as plan_mod
@@ -3302,7 +3411,7 @@ def main():
             print("ptxas: " + line.strip())
 
     def reset_launches():
-        for counts in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+        for counts in launch_counters():
             for key in counts:
                 counts[key] = 0
 
@@ -3384,6 +3493,11 @@ def main():
         ("pme_spread", "pme_spread_energies", "pme_interp"), slot_pos, st,
         box, cfg, plan, lam_c_nn, reps))
 
+    # ---- 17. the water tail against its twin
+    results["water_tail"] = water_tail_check(
+        plan, masses, constraints, capacity, pos,
+        torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data, reps)
+
     # ---- 4. whole evaluation: card f32 vs CPU f64 (plain twins)
     reference = evaluation_check("evaluation", plan, capacity, apply, st, pos,
                                  box, gvals, data, pos_np, box_np, np.ones(2))
@@ -3400,16 +3514,20 @@ def main():
         chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, timed "
           f"chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
     check(config["graph"], "md: the K-step windows run as CUDA graphs")
     check_launches("md", "rigid", launches)
-    launch_report("md", chunks, launches, "pair_column")
+    launch_report("md", chunks, launches, "pair_column", tail=True)
     ms_stencil = md_checks("md", p, v, energy, masses, 0,
                            3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)
     run_launches = {"rigid": launches}
+    # the capacity the run settled on (a chunk that overflowed the cells
+    # is run again with 8 more slots a cell), for phase 9's graphs of the
+    # same step, whose timed chunks take it some 800 steps from the state
+    md_capacity = chunks.capacity
 
     # ---- 6. the solute path: the min-image cell kernel
     t0 = time.time()
@@ -3499,7 +3617,7 @@ def main():
     p, v, energy, chunk_s, config = run_md(
         chunks, s_pos, torch.as_tensor(s_vel_np, device=dev).to(f32), box,
         s_gvals, s_data, SOLUTE_TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"solute md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
@@ -3542,12 +3660,12 @@ def main():
         chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         GRID_TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"grid md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
     check_launches("grid md", "rigid_grid", launches)
-    launch_report("grid md", chunks, launches, "pair_column")
+    launch_report("grid md", chunks, launches, "pair_column", tail=True)
     # one pair kernel and one of each window kernel per evaluation, one
     # double spread per evaluation with energies
     n_eval = launches["pair_column"] + launches["pair_column_energies"]
@@ -3576,7 +3694,7 @@ def main():
                      s_st_g, s_pos, box, s_gvals, s_data, s_pos_np, box_np,
                      s_plan.global_defaults, pme_pipeline="grid",
                      reference=s_reference)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"solute grid evaluation: launches {launches}")
     check_launches("solute grid evaluation", "solute_grid", launches)
     run_launches["solute_grid"] = launches
@@ -3636,7 +3754,7 @@ def main():
         chunks, torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, l_data,
         LJPME_TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"ljpme md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s; launches "
           f"{launches}")
@@ -3685,14 +3803,14 @@ def main():
     evaluation_check("solute ljpme evaluation", ls_plan, s_capacity,
                      ls_apply, ls_st, s_pos, box, s_gvals, ls_data, s_pos_np,
                      box_np, ls_plan.global_defaults)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"solute ljpme evaluation: launches {launches}")
     check_launches("solute ljpme evaluation", "solute_ljpme", launches)
     run_launches["solute_ljpme"] = launches
 
     # ---- 9. the CUDA graph against the eager body
     graph_against_eager(
-        "graph", make_bench_run, capacity,
+        "graph", make_bench_run, md_capacity,
         torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         reset_launches, card)
@@ -3708,7 +3826,7 @@ def main():
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, l_data,
         reset_launches, card)
     graph_against_eager(
-        "grid graph", make_grid_run, capacity,
+        "grid graph", make_grid_run, md_capacity,
         torch.as_tensor(pos_np, device=dev).to(f32),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         reset_launches, card)
@@ -3725,14 +3843,14 @@ def main():
         chunks, torch.as_tensor(pos_np, device=dev),
         torch.as_tensor(vel_np, device=dev).to(f32), box, gvals, data,
         MIXED_TIMED_CHUNKS)
-    launches = dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    launches = all_launches()
     print(f"mixed md: config {config}; warm-up chunk {chunk_s[0]:.2f} s, "
           f"timed chunks {[round(t, 3) for t in chunk_s[1:]]} s")
     check(config["mixed_precision"] and config["graph"]
           and p.dtype == torch.float64 and v.dtype == f32,
           f"mixed md: float64 positions ({p.dtype}), float32 velocities "
           f"({v.dtype}), graphed")
-    check_launches("mixed md", "rigid", launches)
+    check_launches("mixed md", "rigid_mixed", launches)
     launch_report("mixed md", chunks, launches, "pair_column")
     ms_mixed = md_checks("mixed md", p, v, energy, masses, 0,
                          3 * n - 3 * N_MOLECULES - 3, chunk_s, n, card)

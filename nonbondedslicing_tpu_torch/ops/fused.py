@@ -223,6 +223,13 @@ def slot_positions(positions, state, cell_kernel):
             .transpose(1, 2) + state["padfix3"]).contiguous()
 
 
+def unsort(slot_f, inv_slots):
+    """(N, 3) atom forces of the cell-major slot forces ``slot_f``
+    (n_cells, 3, C): a gather by the inverse slot map (``slot_state``'s
+    ``inv_slots``)."""
+    return slot_f.transpose(1, 2).reshape(-1, 3)[inv_slots]
+
+
 def water_pair_slices(subsets, sl_tab):
     """(M, 3) slice ids of the local pairs 0-1, 0-2, 1-2 of the waters
     (molecule m = atoms 3m..3m+2): the exclusion rows' ``pair_slices``
@@ -298,6 +305,13 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
     energies.  The PME convolution kernel is computed once per device and
     dtype from ``plan.box0``.
 
+    ``apply(..., slot_forces=True)`` (where ``config["slot_forces"]``:
+    force-only PME on the column kernel, no 1-4 exceptions; it raises
+    ValueError elsewhere) stops before the atom-order terms: it returns the cell-major slot forces of the pair kernel and the
+    reciprocal part, summed, (n_cells, 3, C), in place of the atom forces,
+    and ``aux["lam"]``, the (S, 2) slice lambdas; the unsort and the
+    exclusion rows are then the caller's (``runtime/water_tail.py``).
+
     ``pme_pipeline`` chooses how the reciprocal forces are computed
     (``ops/cuda_pme.py``): ``"stencil"`` spreads into and interpolates from
     whole grids; ``"grid"`` is the brick-window pipeline (spread windows,
@@ -331,6 +345,10 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
             pme_bricks.check_two_piece_windows(cfg["dispersion_grid"], bricks)
     # the min-image cell kernel with fused exclusion corrections
     use_cell = uses_cell_kernel(plan)
+    # the plans whose atom-order terms are the water exclusion rows alone
+    cfg["slot_forces"] = (not energies and not use_cell
+                          and method == NonbondedForce.PME
+                          and len(plan.nb14_atoms) == 0)
     counts = cfg["counts"]
     capacity = cfg["capacity"]
     n = plan.num_particles
@@ -419,7 +437,10 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                 data["subsets"], _indices(dev)["sl_tab"])
         return state
 
-    def apply(positions, box, gvals, data, state):
+    def apply(positions, box, gvals, data, state, slot_forces=False):
+        if slot_forces and not cfg["slot_forces"]:
+            raise ValueError("apply(slot_forces=True) takes force-only PME "
+                             "on the column kernel without 1-4 exceptions")
         dev = positions.device
         idx = _indices(dev)
         lam = params.slice_lambdas(idx["lam_src"], gvals)
@@ -485,8 +506,11 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
                     if energies:
                         slice_e[:, VDW] += e_d
 
+        if slot_forces:
+            return None, slot_f, dict(guards(positions, state), lam=lam)
+
         # single slot->atom unsort: gather by the inverse permutation
-        forces = slot_f.transpose(1, 2).reshape(-1, 3)[state["inv_slots"]]
+        forces = unsort(slot_f, state["inv_slots"])
 
         if bare_ewald:
             with profiling.span("nbs.engine.reciprocal"):
@@ -528,11 +552,17 @@ def make_fused_engine(plan, *, cell_capacity=None, target_skin=0.0,
             slice_e[:, VDW] += (data["dispersion_coefficients"].to(torch.float64)
                                 / box_volume(box).to(torch.float64))
 
+        return slice_e, forces, guards(positions, state)
+
+    def guards(positions, state):
+        """``apply``'s aux: the overflow count, the squared max displacement
+        since ``prepare`` and, on the cell kernel's path, the span of the
+        excluded pairs."""
         disp = positions - state["pos0"]
         maxdisp2 = torch.max(torch.sum(disp * disp, dim=-1))
         aux = dict(overflow=state["overflow"], maxdisp2=maxdisp2)
         if use_cell:
             aux["excl_span"] = state["excl_span"]
-        return slice_e, forces, aux
+        return aux
 
     return prepare, apply, cfg

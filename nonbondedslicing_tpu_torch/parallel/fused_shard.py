@@ -217,7 +217,7 @@ def make_sharded_md_step(plan, masses, dt, group=None, dtype=torch.float32,
             # unsort: atoms outside the slab read zeros
             grid_f = slot_f.new_zeros((n_cells, 3, capacity))
             grid_f[c0:c1] = slot_f
-            forces = grid_f.transpose(1, 2).reshape(-1, 3)[state["inv_slots"]]
+            forces = fused.unsort(grid_f, state["inv_slots"])
             if energies:
                 part += fused.moment_slice_energies(moments, slice_pairs,
                                                     nslices)

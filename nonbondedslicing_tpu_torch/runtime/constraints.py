@@ -195,7 +195,11 @@ class SettleConstrainer:
             s=np.asarray(s)[..., None])
         self._cache = {}
 
-    def _consts(self, like):
+    def consts(self, like):
+        """The per-molecule constants in the dtype and on the device of
+        ``like``, made once for each: ``ra``, ``rb``, ``rc``, ``wa``,
+        ``wb`` (M, 1), the inverse masses ``inv_m`` (3, M, 1) of atoms a,
+        b, c and RATTLE's coupling ``s`` (3, 3, M, 1)."""
         key = (like.device, like.dtype)
         if key not in self._cache:
             consts = {}
@@ -208,7 +212,7 @@ class SettleConstrainer:
     def project_positions(self, pos_ref, pos_new):
         """Constrained positions from the unconstrained update ``pos_new``
         of the constrained ``pos_ref`` (both (3M, 3))."""
-        c = self._consts(pos_new)
+        c = self.consts(pos_new)
         ra, rb, rc = c["ra"], c["rb"], c["rc"]
         a0, b0, c0 = _rows(pos_ref)
         a1, b1, c1 = _rows(pos_new)
@@ -273,7 +277,7 @@ class SettleConstrainer:
 
     def project_velocities(self, pos, vel):
         """RATTLE: remove the velocity components along the constraints."""
-        c = self._consts(vel)
+        c = self.consts(vel)
         a, b, cc = _rows(pos)
         va, vb, vc = _rows(vel)
         rn = [a - b, a - cc, b - cc]

@@ -8,8 +8,10 @@ body of a window: ``prepare``, then K times (``apply``, bonds, integrate),
 then the guard maxima.  On CUDA tensors each window is a replay of one CUDA
 graph of that body, the port's counterpart of the JAX package's jitted
 ``lax.scan`` (:class:`_WindowGraphs`); CPU tensors run the same body
-eagerly.  Inner steps run the force-only engine; each ``run()`` ends with
-one eager evaluation with energies.  Safety is monitored on the device and
+eagerly.  Inner steps run the force-only engine (on the rigid-water box
+its tail, from the slot forces to the new state, is one kernel:
+``runtime/water_tail.py``); each ``run()`` ends with one eager evaluation
+with energies.  Safety is monitored on the device and
 checked on the host once per ``run()``, after the steps:
 
 * ``overflow`` — atoms beyond the static cell capacity (never silently
@@ -48,7 +50,7 @@ from ..ops import fused as fused_mod
 from ..ops.geometry import min_image
 from ..ops.params import slice_lambdas
 from ..utils.indexing import incidence_sums, incidence_table
-from . import profiling
+from . import profiling, water_tail
 
 # nm — Verlet-list style cell oversizing for MD reuse (as the JAX package)
 DEFAULT_SKIN = 0.09
@@ -104,7 +106,8 @@ def make_integrator(masses, dt, dtype, constraints=None):
     in ``dtype``.  ``constraints`` = (pairs, dists[, mask]) adds the
     projections of ``runtime.constraints.make_constrainer``.
     ``integrate.capturable`` says whether the step can be captured in a
-    CUDA graph."""
+    CUDA graph, ``integrate.constrainer`` is the constraint solver's object
+    (``SettleConstrainer`` or ``GatherConstrainer``) or None."""
     m_np = np.asarray(masses, dtype=np.float64)
     inv_m_np = np.where(m_np > 0, 1.0 / np.maximum(m_np, 1e-300), 0.0)[:, None]
     inv_m_dev = {}
@@ -128,7 +131,8 @@ def make_integrator(masses, dt, dtype, constraints=None):
         vel_new = proj_v(pos_new, (pos_new - pos) / dt)
         return pos_new, vel_new.to(vel.dtype)
 
-    integrate.capturable = proj_x is None or proj_x.__self__.capturable
+    integrate.constrainer = None if proj_x is None else proj_x.__self__
+    integrate.capturable = proj_x is None or integrate.constrainer.capturable
     return integrate
 
 
@@ -136,7 +140,7 @@ def make_integrator(masses, dt, dtype, constraints=None):
 # no Python, so a capture records what one replay launches, takes it back
 # out of the counters, and each replay adds it: the counts stay the number
 # of kernels the card ran.
-_COUNTERS = (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES)
+_COUNTERS = (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES, water_tail.LAUNCHES)
 
 
 def _launch_counts():
@@ -323,6 +327,14 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     is a fixed number of CGLS iterations,
     ``runtime.constraints.cgls_solve``), so it is True.
 
+    Where ``runtime.water_tail.uses_water_tail`` holds (the rigid-water
+    box: float32 PME on the column kernel, SETTLE, no bonds, no 1-4s, not
+    mixed) each force-only step hands the engine's slot forces to the
+    tail (``runtime/water_tail.py``): one CUDA kernel from the slot forces
+    to the new state (unsort, exclusion rows, kick, SETTLE, RATTLE), its
+    plain twin, the same sequence as every other plan's, on CPU tensors;
+    ``run.config["water_tail"]`` says whether it does.
+
     ``mixed_precision=True`` (with ``dtype=torch.float32`` only, as in the
     JAX package; ignored otherwise) carries the positions in float64: each
     step casts them to float32 for the force evaluation and the bonds, the
@@ -379,6 +391,7 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     eng = fused_mod.make_fused_engine(plan, cell_capacity=cell_capacity,
                                       target_skin=target_skin, energies=False,
                                       pme_pipeline=pme_pipeline)
+    tail = None
     if eng is None:
         compute = engine_mod.make_compute(plan, True, True,
                                           cell_capacity=cell_capacity,
@@ -424,6 +437,10 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
                       **{k: v for k, v in cfg.items()
                          if k in ("counts", "capacity", "pme_grid",
                                   "dispersion_grid")})
+        if water_tail.uses_water_tail(cfg, integrate.constrainer,
+                                      dtype=dtype, mixed_precision=mixed,
+                                      bonds=bonds):
+            tail = water_tail.make_water_tail(plan, dt, integrate)
 
         def window(k, pos, vel, box, gvals, data, acc):
             """One window: the slot rebuild at ``pos``, then ``k`` steps.
@@ -432,8 +449,13 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
             state = prepare(pos.to(dtype), box, gvals, data)
             for _ in range(k):
                 pos32 = pos.to(dtype)
-                _, forces, aux = apply(pos32, box, gvals, data, state)
-                pos, vel = integrate(pos, vel, with_bonds(forces, pos32))
+                if tail is None:
+                    _, forces, aux = apply(pos32, box, gvals, data, state)
+                    pos, vel = integrate(pos, vel, with_bonds(forces, pos32))
+                else:
+                    _, slot_f, aux = apply(pos32, box, gvals, data, state,
+                                           slot_forces=True)
+                    pos, vel = tail(slot_f, pos, vel, state, aux["lam"])
                 torch.maximum(acc["dmax"], aux["maxdisp2"], out=acc["dmax"])
             torch.maximum(acc["ov"], state["overflow"], out=acc["ov"])
             if "excl_span" in state:
@@ -492,5 +514,5 @@ def make_md_step(plan, masses, dt, *, dtype=torch.float32, cell_capacity=None,
     run.eager = functools.partial(_run, graphed=False)
     run.stats = graphs.stats
     run.config = dict(config, mixed_precision=mixed, graph=graph_ok,
-                      pme_pipeline=pme_pipeline)
+                      pme_pipeline=pme_pipeline, water_tail=tail is not None)
     return run

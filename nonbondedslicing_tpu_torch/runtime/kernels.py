@@ -48,6 +48,7 @@ _SIGNATURES = {
     "nbs_pme_fold": [_P] * 2 + [_I] * 7 + [_P],
     "nbs_pme_extract": [_P] * 2 + [_I] * 7 + [_P],
     "nbs_pme_interp_windows": [_P] * 6 + [_I] * 8 + [_P],
+    "nbs_water_tail": [_P] * 11 + [_I] * 2 + [_F] * 5 + [_P],
 }
 
 

@@ -122,10 +122,12 @@ def counters():
     ``md.retries``, ``eval.capacity_grows``, ``bus.h2d_bytes``,
     ``bus.d2h_bytes``, ``spans.dropped``) and the kernel wrappers'
     launches as ``launch.<kernel>`` (``ops.cuda_direct.LAUNCHES``,
-    ``ops.cuda_pme.LAUNCHES``)."""
+    ``ops.cuda_pme.LAUNCHES``, ``runtime.water_tail.LAUNCHES``)."""
     from ..ops import cuda_direct, cuda_pme
+    from . import water_tail
     out = dict(_counters)
-    for launches in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES):
+    for launches in (cuda_direct.LAUNCHES, cuda_pme.LAUNCHES,
+                     water_tail.LAUNCHES):
         out.update(("launch." + name, n) for name, n in launches.items())
     return out
 

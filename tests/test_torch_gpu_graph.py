@@ -22,6 +22,7 @@ import nonbondedslicing_tpu_torch as nbt
 from nonbondedslicing_tpu_torch.ops import cuda_direct, cuda_pme
 from nonbondedslicing_tpu_torch.ops import engine as tengine
 from nonbondedslicing_tpu_torch.ops import plan as tplan
+from nonbondedslicing_tpu_torch.runtime import water_tail
 from nonbondedslicing_tpu_torch.runtime.fastpath import make_md_step
 
 from nonbondedslicing_tpu_torch.runtime.constraints import \
@@ -62,7 +63,8 @@ def rigid(cuda):
 
 
 def _launches():
-    return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES)
+    return dict(cuda_direct.LAUNCHES, **cuda_pme.LAUNCHES,
+                **water_tail.LAUNCHES)
 
 
 def _made(before):

@@ -58,7 +58,8 @@ def test_kernel_build_is_lazy():
     names = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
     assert names == {"pair_column.cu", "pair_cell.cu", "pme_spread.cu",
                      "pme_interp.cu", "pme_spread_windows.cu", "pme_fold.cu",
-                     "pme_extract.cu", "pme_interp_windows.cu"}
+                     "pme_extract.cu", "pme_interp_windows.cu",
+                     "water_tail.cu"}
     # one entry point per source, and the pair kernels' launch-shape query
     assert {"nbs_" + n[:-3] for n in names} == (
         set(kernels._SIGNATURES) - {"nbs_pair_launch_shape"})

@@ -2,14 +2,20 @@
 
 * ``BENCHMARK.json`` at the root of the checkout lists the cells and the
   metrics;
-* ``benchmark/configs/<name>.json``: a configuration;
+* ``benchmark/configs/<name>.json``: a configuration (its keys:
+  :mod:`harness.spec`), with its own tiny size for the tests
+  (``"tiny_cube_edge_nm"``);
+* ``benchmark/reference/<method>.py``: the plain reference of the
+  configurations whose ``"method"`` is ``<method>`` in lower case, a
+  function ``model(spec, device, mode, skin)`` (:func:`reference`; what
+  it returns: :mod:`reference`);
 * ``benchmark/traffic/<name>.json``: a traffic mix;
 * ``benchmark/limits/<cell>.json``: the limits of a cell's comparison;
 * ``benchmark/metrics/<name>.py``: a metric's reader, a function
   ``read(run)`` that returns a number or None.
 
-A cell, a mix or a metric is added by adding files and entries; nothing
-here names one.
+A configuration, a cell, a mix or a metric is added by adding files and
+entries; nothing here names one.
 """
 
 import importlib.util
@@ -57,6 +63,25 @@ def reader(name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def reference(config):
+    """The ``model`` function of ``reference/<method>.py``, the plain
+    reference of ``config``, whose ``"method"`` names it in lower case
+    (what it must give: :mod:`reference`); FileNotFoundError, naming the
+    configuration and the module, if there is no such module."""
+    name = config["method"].lower()
+    path = os.path.join(BENCH_DIR, "reference", f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"configuration {config['name']}: its method "
+            f"{config['method']!r} has no reference module "
+            f"{os.path.relpath(path, ROOT)}")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_reference_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.model
 
 
 def metrics_of(bench, cell_name, traced):

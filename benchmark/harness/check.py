@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from reference.md import Integrator, NotConverged, bond_terms
-from reference.sliced import SlicedPME
+from . import catalog
 from .client import state_of
 
 NUMBERS = ("energy_rel", "dedl_rel", "traj_pos_rms_nm", "traj_pos_max_nm",
@@ -78,16 +78,18 @@ def draw(n_samples, traffic, seed):
 
 
 class Judge:
-    """The reference of one system on ``device``: ``answer(pos)`` gives
-    (energy, derivatives) and ``follow(x, v, steps)`` the MD step's state,
-    in the arithmetic ``mode`` (``"f64"``, or ``"tf32"`` for the
-    control)."""
+    """The reference of one system on ``device``, ``model`` or else the
+    one that the configuration's method names
+    (:func:`harness.catalog.reference`): ``answer(pos)`` gives (energy,
+    derivatives) and ``follow(x, v, steps)`` the MD step's state, in the
+    arithmetic ``mode`` (``"f64"``, or ``"tf32"`` for the control)."""
 
-    def __init__(self, spec, config, device, mode="f64"):
+    def __init__(self, spec, config, device, mode="f64", model=None):
+        model = model or catalog.reference(config)
         self.spec = spec
-        self.evaluator = SlicedPME(spec, device, mode)
-        self.md = Integrator(spec, SlicedPME(spec, device, mode,
-                                             skin=REFERENCE_SKIN),
+        self.evaluator = model(spec, device, mode)
+        self.md = Integrator(spec, model(spec, device, mode,
+                                         skin=REFERENCE_SKIN),
                              float(config["dt_ps"]))
 
     def answer(self, pos):

@@ -8,6 +8,24 @@ gives the :class:`Spec` that the reference reads: the
 same particles, exceptions, subsets, scaling parameters, constraints and
 bonds that the port's System holds, as numpy arrays, with nothing of the
 port in them.
+
+A configuration (``configs/<name>.json``) holds:
+
+* ``name``, ``source``; ``guarantees``, ``deployment``, ``reduced`` and
+  ``assumed``, in words;
+* ``builder``, ``state``, ``state_box_nm``, ``method``: what :func:`build`
+  reads (the builder, the waters' state file under ``benchmark/`` and its
+  box edge, the nonbonded method, which also names the plain reference,
+  ``reference/<method in lower case>.py``: :func:`harness.catalog.reference`);
+  an optional ``cube_edge_nm`` cuts a cube of that edge from the state;
+* ``stated``: the numbers that :func:`check_stated` holds the built
+  system to;
+* ``platform``, ``precision``, ``dt_ps``, ``temperature_k``: the
+  Context's platform and precision, the time step and the temperature
+  the velocities are drawn at (``run.py``);
+* ``tiny_cube_edge_nm``: the ``cube_edge_nm`` at which the tests run it on
+  the CPU, below three neighbour cells a side so that the port's MD step
+  takes its per-step path.
 """
 
 import importlib.util

@@ -154,7 +154,7 @@ def bond_terms(spec, pos):
 
 class Integrator:
     """``steps(x, v, n)``: n leapfrog steps of the reference model ``model``
-    (a :class:`reference.sliced.SlicedPME` on the MD step's grid) with the
+    (what a reference module's ``model`` returns: :mod:`reference`) with the
     system's bonds and constraints.  The update and the constraints run in
     the model's dtype."""
 

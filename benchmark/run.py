@@ -105,6 +105,9 @@ def run_cell(args, device="cuda", overrides=None, program=None):
     traffic = {**catalog.traffic(cell["traffic"]),
                **overrides.get("traffic", {})}
     limits = {**catalog.limits(cell["name"]), **overrides.get("limits", {})}
+    # loaded before anything is built, so that a missing module costs no
+    # set-up and whatever it loads is in sys.modules for the guard
+    model = catalog.reference(config)
     if traffic["loop"] != "closed" or int(traffic["clients"]) != 1:
         raise ValueError(f"traffic {traffic['name']}: the client is one "
                          "closed loop")
@@ -170,15 +173,10 @@ def run_cell(args, device="cuda", overrides=None, program=None):
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    found = guard.forbidden_modules()
-    if found:
-        log("run.py: modules of JAX or the JAX package are loaded: "
-            + ", ".join(found))
-        return 3, None
 
     # ---- the check, against the plain reference
     spec = spec_of(config)
-    judge = Judge(spec, config, dev)
+    judge = Judge(spec, config, dev, model=model)
     per, numbers = judge_window(judge, samples, start, traffic, args.seed)
     correct, checks = verdict(numbers, limits)
     failed = failed_samples(per, limits)
@@ -218,6 +216,12 @@ def run_cell(args, device="cuda", overrides=None, program=None):
     else:
         info = {"platform": "cpu", "kind": "cpu", "count": 1,
                 "memory_peak_bytes": peak}
+    # the last look at the process, after the reference and the readers
+    found = guard.forbidden_modules()
+    if found:
+        log("run.py: modules of JAX or the JAX package are loaded: "
+            + ", ".join(found))
+        return 3, None
     result = {"correct": bool(correct), "attempted": len(samples),
               "failed": int(failed), "metrics": metrics, "device": info}
     if summary is not None:

@@ -15,9 +15,8 @@ for path in (ROOT, BENCH_DIR):
     if path not in sys.path:
         sys.path.insert(0, path)
 
-# a cube cut from the benchmark state (below three neighbour cells a side,
-# so the port's MD step takes its per-step path), a few steps a sample
-TINY_EDGE = {"water23k-pme": 2.3, "solute23k-pme": 2.6}
+# a few steps a sample; the configuration is cut to the cube its file
+# states (tiny_cube_edge_nm)
 TINY_TRAFFIC = {"steps_per_sample": 8, "check_energies": 2,
                 "check_intervals": 1, "trace_skip_samples": 0,
                 "trace_samples": 1}
@@ -38,8 +37,8 @@ def tiny_overrides(cell):
     traffic = dict(TINY_TRAFFIC)
     if "check_split_steps" in catalog.traffic(entry["traffic"]):
         traffic.update(TINY_SPLIT)
-    return {"config": {"cube_edge_nm": TINY_EDGE[entry["config"]],
-                       "stated": {}},
+    edge = catalog.config(entry["config"])["tiny_cube_edge_nm"]
+    return {"config": {"cube_edge_nm": edge, "stated": {}},
             "traffic": traffic}
 
 

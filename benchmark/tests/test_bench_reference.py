@@ -14,7 +14,6 @@ from reference.md import Constraints, Integrator, small_solve
 from reference.precision import tf32_round
 from reference.sliced import ONE_4PI_EPS0, SlicedPME, dispersion_coefficients
 
-from conftest import TINY_EDGE
 
 L = 2.5
 RC = 1.0
@@ -151,13 +150,16 @@ def test_small_solve():
                                np.linalg.solve(A[0].numpy(), b[0].numpy()))
 
 
+CONFIGS = [c["name"] for c in catalog.benchmark()["configs"]]
+
+
 def _tiny(config_name):
-    config = dict(catalog.config(config_name), stated={},
-                  cube_edge_nm=TINY_EDGE[config_name])
+    config = catalog.config(config_name)
+    config = dict(config, stated={}, cube_edge_nm=config["tiny_cube_edge_nm"])
     return config, spec_of(config)
 
 
-@pytest.mark.parametrize("config_name", ["water23k-pme", "solute23k-pme"])
+@pytest.mark.parametrize("config_name", CONFIGS)
 def test_against_the_port_in_float64(config_name):
     import nonbondedslicing_tpu_torch as nbt
     from reference.md import bond_terms
@@ -172,7 +174,7 @@ def test_against_the_port_in_float64(config_name):
     state = ctx.getState(getEnergy=True, getForces=True,
                          getParameterDerivatives=True, getPositions=True)
     x = np.array(state.getPositions())
-    ref = SlicedPME(spec, "cpu")
+    ref = catalog.reference(config)(spec, "cpu")
     slice_e, forces = ref.evaluate(x)
     bonds, bond_f = bond_terms(spec, torch.as_tensor(x))
     assert ref.energy(slice_e) + bonds == pytest.approx(
@@ -185,7 +187,7 @@ def test_against_the_port_in_float64(config_name):
                                np.array(state.getForces()), atol=1e-8)
 
 
-@pytest.mark.parametrize("config_name", ["water23k-pme", "solute23k-pme"])
+@pytest.mark.parametrize("config_name", CONFIGS)
 def test_md_step_against_the_port_in_float64(config_name):
     import nonbondedslicing_tpu_torch as nbt
     config, spec = _tiny(config_name)
@@ -200,7 +202,7 @@ def test_md_step_against_the_port_in_float64(config_name):
     x0, v0 = start["positions"], start["velocities"]
     ctx.getIntegrator().step(5)
     end = np.load(io.BytesIO(ctx.createCheckpoint()))
-    model = SlicedPME(spec, "cpu", skin=0.1)
+    model = catalog.reference(config)(spec, "cpu", skin=0.1)
     x, v = Integrator(spec, model, 0.002).steps(x0, v0, 5)
     # the port's M-SHAKE stops after 8 sweeps, the reference's SHAKE at
     # 1e-13: 1e-8 nm

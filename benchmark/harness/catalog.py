@@ -1,7 +1,8 @@
 """What the benchmark runs, found by name.
 
 * ``BENCHMARK.json`` at the root of the checkout lists the cells and the
-  metrics;
+  metrics; each per-layer metric names the cells that report it in its
+  ``workloads`` list (:func:`metrics_of`);
 * ``benchmark/configs/<name>.json``: a configuration (its keys:
   :mod:`harness.spec`), with its own tiny size for the tests
   (``"tiny_cube_edge_nm"``);
@@ -85,9 +86,12 @@ def reference(config):
 
 
 def metrics_of(bench, cell_name, traced):
-    """The metric entries a run of ``cell_name`` reports: the end-to-end
-    ones untraced, the per-layer ones traced, each where its
-    ``workloads`` list names the cell or it has none."""
-    entries = bench["per_layer"] if traced else bench["end_to_end"]
-    return [m for m in entries
+    """The metric entries a run of ``cell_name`` reports.  Traced: the
+    per-layer metrics whose ``workloads`` list names the cell; every
+    per-layer metric has one, so a new cell reports what it is listed
+    for and nothing else.  Untraced: the end-to-end metrics, each where
+    its ``workloads`` list names the cell or it has none."""
+    if traced:
+        return [m for m in bench["per_layer"] if cell_name in m["workloads"]]
+    return [m for m in bench["end_to_end"]
             if "workloads" not in m or cell_name in m["workloads"]]

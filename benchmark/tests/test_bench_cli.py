@@ -9,10 +9,10 @@ import run as run_mod
 
 
 def test_arguments_parse():
-    args = run_mod.parse(["--workload", "water23k-pme.dhdl50", "--seed",
+    args = run_mod.parse(["--workload", "water23k-pme.dhdl500", "--seed",
                           "4294967311", "--seconds", "30", "--trace", "1"])
     assert (args.workload, args.seed, args.seconds, args.trace) == (
-        "water23k-pme.dhdl50", 4294967311, 30.0, 1)
+        "water23k-pme.dhdl500", 4294967311, 30.0, 1)
     with pytest.raises(SystemExit):
         run_mod.parse(["--workload", "x", "--seed", "1", "--seconds", "1",
                        "--trace", "2"])
@@ -41,7 +41,7 @@ def test_too_few_cards_exit(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("cell,trace", [("water23k-pme.dhdl50", 0),
+@pytest.mark.parametrize("cell,trace", [("water23k-pme.dhdl500", 0),
                                         ("solute23k-pme.dhdl500", 1)])
 def test_result_line_form(tiny_run, cell, trace):
     code, result = tiny_run(cell, seconds=1.0, trace=trace)
@@ -69,8 +69,8 @@ def test_result_line_form(tiny_run, cell, trace):
 def test_same_seed_same_inputs(tiny_run):
     """The velocities, and so the whole state, come from the seed: the
     checked numbers repeat."""
-    first = tiny_run("water23k-pme.dhdl50", seconds=0.0, seed=77)[1]
-    second = tiny_run("water23k-pme.dhdl50", seconds=0.0, seed=77)[1]
+    first = tiny_run("water23k-pme.dhdl500", seconds=0.0, seed=77)[1]
+    second = tiny_run("water23k-pme.dhdl500", seconds=0.0, seed=77)[1]
     assert first["checks"] == second["checks"]
 
 
@@ -79,7 +79,7 @@ def test_tiny_cell_on_the_card(tiny_run):
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    code, result = tiny_run("water23k-pme.dhdl50", seconds=1.0,
+    code, result = tiny_run("water23k-pme.dhdl500", seconds=1.0,
                             device="cuda")
     assert code == 0 and result["correct"] is True
     assert result["device"]["platform"] == "gpu"

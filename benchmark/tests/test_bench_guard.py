@@ -27,5 +27,5 @@ def test_the_port_loads_no_jax():
 
 def test_run_exits_when_jax_is_loaded(tiny_run, monkeypatch):
     monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
-    code, result = tiny_run("water23k-pme.dhdl50", seconds=0.0)
+    code, result = tiny_run("water23k-pme.dhdl500", seconds=0.0)
     assert code != 0 and result is None

@@ -30,20 +30,23 @@ def test_the_entries_read_the_program():
     assert set(ENTRIES) == set(NEW)
     for m in ENTRIES.values():
         assert m["source"] == "program_span" and m["moves"] == "ns_day"
-    assert _listed("water23k-pme.dhdl50") == set(NEW)
+    assert _listed("water23k-pme.dhdl500") == set(NEW)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_traced_run_reports_them(tiny_run, cell):
+    """Each metric a cell lists reads a number; of those, every traced
+    slice replays and copies something."""
     code, result = tiny_run(cell, seconds=1.0, trace=1)
     assert code == 0 and result["correct"] is True
     metrics = result["metrics"]
-    assert _listed(cell) <= set(metrics)
-    for name in _listed(cell):
+    listed = _listed(cell)
+    assert listed <= set(metrics)
+    for name in listed:
         assert np.isfinite(metrics[name]["value"])
         assert metrics[name]["value"] >= 0.0
-    assert metrics["step_replay_ms"]["value"] > 0.0
-    assert metrics["bus_kib_per_step"]["value"] > 0.0
+    for name in listed & {"step_replay_ms", "bus_kib_per_step"}:
+        assert metrics[name]["value"] > 0.0
 
 
 def test_without_the_programs_records_they_read_none(tiny_run, monkeypatch):
@@ -56,7 +59,7 @@ def test_without_the_programs_records_they_read_none(tiny_run, monkeypatch):
     stand_in = types.ModuleType(program_spans.MODULE)
     stand_in.trace = stand_in.time_fn = None
     monkeypatch.setitem(sys.modules, program_spans.MODULE, stand_in)
-    code, result = tiny_run("water23k-pme.dhdl50", seconds=0.5, trace=1)
+    code, result = tiny_run("water23k-pme.dhdl500", seconds=0.5, trace=1)
     assert code == 0
     assert not set(NEW) & set(result["metrics"])
 
